@@ -1,0 +1,47 @@
+"""adaptive_mcmc_tpu_torch — the PyTorch/CUDA port of adaptive_mcmc_tpu.
+
+The JAX package ``adaptive_mcmc_tpu`` is the reference; this package runs
+the same samplers in PyTorch on an NVIDIA H100, with every TPU kernel of the
+path rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``).  It holds the
+main path so far: batched adaptive ARWMH on eight-schools noncentered,
+driven by ``run_mcmc`` / ``MCMC``, with kernel K1 (the rank-1 Cholesky
+update) and kernel K2 (the fused ARWMH sweep).  It never imports JAX.
+
+    import torch
+    import adaptive_mcmc_tpu_torch as amt
+
+    target = amt.eight_schools_noncentered()
+    mcmc = amt.MCMC(amt.arwmh(target), num_warmup=5000, num_samples=20000,
+                    thinning=10, n_chains=4096)
+    mcmc.run(torch.Generator("cuda").manual_seed(0))
+    mcmc.print_summary()
+"""
+
+import torch
+
+from adaptive_mcmc_tpu_torch import kernels  # noqa: F401  (registers)
+from adaptive_mcmc_tpu_torch.models import (  # noqa: F401
+    Target,
+    eight_schools_noncentered,
+    mvn,
+    std_normal,
+)
+from adaptive_mcmc_tpu_torch.kernels import (  # noqa: F401
+    ARWMHAdaptState,
+    ARWMHConfig,
+    ARWMHState,
+    arwmh,
+    rwm,
+)
+from adaptive_mcmc_tpu_torch.infer import (  # noqa: F401
+    MCMC,
+    get_init_adapt_state,
+    run_mcmc,
+)
+
+__version__ = "0.1.0"
+
+# float32 products in full precision on the card (the JAX side pins
+# Precision.HIGHEST for the proposal matvec).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,359 @@
+// Kernel K2: the fused ARWMH sweep on Hopper (sm_90a), eight-schools
+// noncentered target.
+//
+// Replaces the Pallas TPU kernel built by build_fused_arwmh in
+// adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py (_make_kernel / _one_step).
+// Plain PyTorch version: fused_arwmh_reference in
+// adaptive_mcmc_tpu_torch/ops/cuda/arwmh_fused.py, whose operation order
+// this kernel follows.
+//
+// One launch runs n_steps whole ARWMH transitions.  One thread owns one
+// chain and keeps its whole state in registers for the launch: x and loc
+// (d each), the lower half of L (d(d+1)/2 = 55 floats at d = 10), pe, the
+// running mean acceptance and log step size.  d = J + 2 is a template
+// parameter, so every loop over d unrolls and all indexing is static.  Per
+// step:
+//   1. draws: Box-Muller normals over u1 in (0, 1] and 24-bit uniforms from
+//      a counter-based Philox4x32-10 keyed by (seed, chain) with the step
+//      index as counter, or injected noise (S, d, C) / unif (S, C);
+//   2. proposal x' = x + (L e^lam + eps I) z, unrolled over columns;
+//   3. the eight-schools potential, in the operation order of
+//      models/targets.py, NaN -> +inf;
+//   4. MH accept with alpha = min(1, exp(U - U')), NaN propagating;
+//   5. adaptation clock (gamma = n^-r as exp(-r log n), clock restarted
+//      after warmup), running means, loc update;
+//   6. the GGMS74-C1 rank-1 update of sqrt(1 - gamma) L with the per-chain
+//      NaN guard (keep the old factor), Robbins-Monro log step update;
+//   7. as_change = ||L' e^lam' - L e^lam||_F, only on a recorded or final
+//      step; thinned frames are written chains-last to (F, d, C), (F, C).
+//
+// Bound: arithmetic latency and register pressure, not bytes.  The state is
+// read and written once per launch and frames are a small thinned stream;
+// each step is a dependent chain of a few thousand instructions per thread
+// (divisions and square roots of the column recursion, exp/log/log1p of the
+// potential, Philox rounds).  The design keeps every operand in registers
+// and puts one warp per block so the 4096 chains of the main path spread
+// over the card's SMs.  Build without fast math: IEEE division and sqrt keep
+// the NaN of an indefinite update, and no FMA contraction keeps rounding
+// close to the plain version.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 32;
+constexpr float kTwoPi = 6.2831853071795864769f;
+constexpr float kLog2Pi = 1.8378770664093453f;
+// log 5, and log 2 - log pi - log 5 of the half-Cauchy(5), folded in double
+// as the plain version folds its Python constants.
+constexpr float kLog5 = 1.6094379124341003f;
+constexpr float kHalfCauchy5 =
+    static_cast<float>(0.6931471805599453 - 1.1447298858494002 -
+                       1.6094379124341003);
+
+struct Params {
+  float* x;      // (D, C)
+  float* pe;     // (C,)
+  float* map;    // (C,)
+  float* loc;    // (D, C)
+  float* L;      // (D, D, C)
+  float* lam;    // (C,)
+  float* as;     // (C,)
+  const float* y;      // (J,)
+  const float* sigma;  // (J,)
+  const float* noise;  // (S, D, C) or null
+  const float* unif;   // (S, C) or null
+  float* fx;           // (F, D, C) or null
+  float* fpe;          // (F, C) or null
+  float* fas;          // (F, C) or null
+  int C;
+  int n_steps;
+  int n_frames;
+  int thinning;
+  int i0;
+  int num_warmup;
+  float lr_decay;
+  float target_ap;
+  float eps;
+  unsigned long long seed;
+};
+
+// ---- Philox4x32-10 (Salmon et al. 2011) ---------------------------------
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
+  constexpr uint32_t kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
+  constexpr uint32_t kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r > 0) {
+      key.x += kW0;
+      key.y += kW1;
+    }
+    const uint32_t hi0 = __umulhi(kM0, ctr.x), lo0 = kM0 * ctr.x;
+    const uint32_t hi1 = __umulhi(kM1, ctr.z), lo1 = kM1 * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ key.x, lo1, hi0 ^ ctr.w ^ key.y, lo0);
+  }
+  return ctr;
+}
+
+// uniform [0, 1) from the top 24 bits
+__device__ __forceinline__ float bits01(uint32_t b) {
+  return static_cast<float>(b >> 8) * (1.0f / 16777216.0f);
+}
+
+// two N(0, 1) by Box-Muller over u1 in (0, 1] (log stays finite)
+__device__ __forceinline__ void box_muller(uint32_t b1, uint32_t b2,
+                                           float* z0, float* z1) {
+  const float u1 = 1.0f - bits01(b1);
+  const float u2 = bits01(b2);
+  const float r = sqrtf(-2.0f * logf(u1));
+  float sn, cs;
+  sincosf(kTwoPi * u2, &sn, &cs);
+  *z0 = r * cs;
+  *z1 = r * sn;
+}
+
+// ---- eight-schools noncentered potential ---------------------------------
+// Same operation order as models/targets.py (and models/base.py):
+//   lp  = normal_logpdf(mu, 0, 5)
+//   lp += half_cauchy_logpdf(tau, 5) + log_tau
+//   lp += sum normal_logpdf(theta_base)
+//   lp += sum normal_logpdf(y, mu + tau theta_base, sigma)
+template <int J>
+__device__ __forceinline__ float eight_schools_potential(
+    const float (&x)[J + 2], const float (&y)[J], const float (&sigma)[J],
+    const float (&log_sigma)[J]) {
+  const float mu = x[0], log_tau = x[1];
+  const float tau = expf(log_tau);
+  // PyTorch on the card divides by a Python scalar as a multiply by its
+  // float reciprocal; the plain version's (x - loc) / 5.0 does so.
+  const float zm = (mu - 0.0f) * (1.0f / 5.0f);
+  float lp = -0.5f * (zm * zm + kLog2Pi) - kLog5;
+  const float zc = tau * (1.0f / 5.0f);
+  lp = lp + ((kHalfCauchy5 - log1pf(zc * zc)) + log_tau);
+  // the J-sums run left to right, as _sum_cols does
+  float s1 = -0.5f * (x[2] * x[2] + kLog2Pi) - 0.0f;
+#pragma unroll
+  for (int k = 1; k < J; ++k) {
+    s1 = s1 + (-0.5f * (x[2 + k] * x[2 + k] + kLog2Pi) - 0.0f);
+  }
+  lp = lp + s1;
+  float s2 = 0.0f;
+#pragma unroll
+  for (int k = 0; k < J; ++k) {
+    const float theta = mu + tau * x[2 + k];
+    const float zy = (y[k] - theta) / sigma[k];
+    const float term = -0.5f * (zy * zy + kLog2Pi) - log_sigma[k];
+    s2 = k == 0 ? term : s2 + term;
+  }
+  lp = lp + s2;
+  return -lp;
+}
+
+// packed lower-triangular index (i >= j), row-major
+__host__ __device__ constexpr int tri(int i, int j) {
+  return i * (i + 1) / 2 + j;
+}
+
+template <int J>
+__global__ void __launch_bounds__(kThreads)
+    arwmh_fused_kernel(const Params p) {
+  constexpr int D = J + 2;
+  constexpr int NL = D * (D + 1) / 2;
+  constexpr int kNormalBlocks = (D + 3) / 4;
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= p.C) return;
+  const size_t C = static_cast<size_t>(p.C);
+
+  float yv[J], sg[J], lsg[J];
+#pragma unroll
+  for (int k = 0; k < J; ++k) {
+    yv[k] = p.y[k];
+    sg[k] = p.sigma[k];
+    lsg[k] = logf(sg[k]);
+  }
+
+  float x[D], loc[D], L[NL];
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    x[i] = p.x[i * C + c];
+    loc[i] = p.loc[i * C + c];
+#pragma unroll
+    for (int j = 0; j <= i; ++j) L[tri(i, j)] = p.L[(i * D + j) * C + c];
+  }
+  float pe = p.pe[c], map = p.map[c], lam = p.lam[c], as_chg = 0.0f;
+  const uint2 key = make_uint2(static_cast<uint32_t>(p.seed),
+                               static_cast<uint32_t>(c));
+  const uint32_t seed_hi = static_cast<uint32_t>(p.seed >> 32);
+
+  for (int s = 0; s < p.n_steps; ++s) {
+    const int i_glob = p.i0 + s;
+    // 1. draws
+    float z[D];
+    float u;
+    if (p.noise != nullptr) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) z[i] = p.noise[(s * D + i) * C + c];
+      u = p.unif[s * C + c];
+    } else {
+#pragma unroll
+      for (int b = 0; b < kNormalBlocks; ++b) {
+        const uint4 r = philox4x32_10(
+            make_uint4(static_cast<uint32_t>(i_glob), b, seed_hi, 0u), key);
+        float n0, n1, n2, n3;
+        box_muller(r.x, r.y, &n0, &n1);
+        box_muller(r.z, r.w, &n2, &n3);
+        if (4 * b + 0 < D) z[4 * b + 0] = n0;
+        if (4 * b + 1 < D) z[4 * b + 1] = n1;
+        if (4 * b + 2 < D) z[4 * b + 2] = n2;
+        if (4 * b + 3 < D) z[4 * b + 3] = n3;
+      }
+      const uint4 r = philox4x32_10(
+          make_uint4(static_cast<uint32_t>(i_glob), kNormalBlocks, seed_hi,
+                     0u),
+          key);
+      u = bits01(r.x);
+    }
+
+    // 2. proposal: y = eps z + sum_j (L[:, j] e^lam) z_j
+    const float ss = expf(lam);
+    float xp[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      float yi = p.eps * z[i];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) yi = yi + (L[tri(i, j)] * ss) * z[j];
+      xp[i] = x[i] + yi;
+    }
+
+    // 3.-4. potential and MH accept
+    float pe_prop = eight_schools_potential<J>(xp, yv, sg, lsg);
+    if (isnan(pe_prop)) pe_prop = CUDART_INF_F;
+    const float e = expf(pe - pe_prop);
+    const float ap = isnan(e) ? e : fminf(e, 1.0f);
+    const bool acc = u < ap;
+    if (acc) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) x[i] = xp[i];
+      pe = pe_prop;
+    }
+
+    // 5. adaptation clock and running means
+    const int itr = i_glob + 1;
+    const int n = i_glob < p.num_warmup ? itr : itr - p.num_warmup;
+    const float nf = static_cast<float>(n);
+    const float gamma =
+        p.lr_decay == 1.0f ? 1.0f / nf : expf(-p.lr_decay * logf(nf));
+    map = map + (ap - map) / nf;
+    float w[D];
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      w[i] = x[i] - loc[i];
+      loc[i] = loc[i] + gamma * w[i];
+    }
+
+    // 6. rank-1 update of sqrt(1 - gamma) L by delta with coefficient gamma
+    const float sq = sqrtf(1.0f - gamma);
+    float Ln[NL];
+    float a = gamma;
+    bool bad = false;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const float diag = sq * L[tri(j, j)];
+      const float inv_diag = 1.0f / diag;
+      const float Dj = diag * diag;
+      const float pj = w[j];
+      const float Dj_new = Dj + a * pj * pj;
+      const float inv_Dj_new = 1.0f / Dj_new;
+      const float sqrt_Dj_new = sqrtf(Dj_new);
+      const float s_w = pj * inv_diag;
+      const float s_col = sqrt_Dj_new * inv_diag;
+      const float s_new = (pj * a) * inv_Dj_new * sqrt_Dj_new;
+      a = a * Dj * inv_Dj_new;
+#pragma unroll
+      for (int i = j; i < D; ++i) {
+        const float col = sq * L[tri(i, j)];
+        w[i] = w[i] - s_w * col;
+        const float v = s_col * col + s_new * w[i];
+        bad = bad || isnan(v);
+        Ln[tri(i, j)] = v;
+      }
+    }
+    const float lam_new = lam + gamma * (ap - p.target_ap);
+
+    // 7. as_change on recorded / final steps, then commit
+    const int f = (s + 1) / p.thinning - 1;
+    const bool is_frame =
+        p.n_frames > 0 && (s + 1) % p.thinning == 0 && f < p.n_frames;
+    if (is_frame || s == p.n_steps - 1) {
+      const float e1 = expf(lam_new), e0 = expf(lam);
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const float dv = (bad ? L[i] : Ln[i]) * e1 - L[i] * e0;
+        sum = sum + dv * dv;
+      }
+      // the zero upper triangle: 0 unless e^lam overflowed (NaN then)
+      const float zu = 0.0f * e1 - 0.0f * e0;
+      sum = sum + static_cast<float>(D * (D - 1) / 2) * (zu * zu);
+      as_chg = sqrtf(sum);
+    }
+    if (!bad) {
+#pragma unroll
+      for (int i = 0; i < NL; ++i) L[i] = Ln[i];
+    }
+    lam = lam_new;
+    if (is_frame) {
+#pragma unroll
+      for (int i = 0; i < D; ++i) p.fx[(f * D + i) * C + c] = x[i];
+      p.fpe[f * C + c] = pe;
+      p.fas[f * C + c] = as_chg;
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    p.x[i * C + c] = x[i];
+    p.loc[i * C + c] = loc[i];
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      p.L[(i * D + j) * C + c] = j <= i ? L[tri(i, j)] : 0.0f;
+  }
+  p.pe[c] = pe;
+  p.map[c] = map;
+  p.lam[c] = lam;
+  p.as[c] = as_chg;
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for an unsupported J or bad arguments.
+extern "C" int arwmh_fused_eight_schools(
+    float* x, float* pe, float* map, float* loc, float* L, float* lam,
+    float* as_change, const float* y, const float* sigma, const float* noise,
+    const float* unif, float* fx, float* fpe, float* fas, int C, int J,
+    int n_steps, int n_frames, int thinning, int i0, int num_warmup,
+    float lr_decay, float target_ap, float eps, unsigned long long seed,
+    void* stream_ptr) {
+  if (C < 0 || n_steps < 0 || thinning < 1 || n_frames < 0 ||
+      (n_frames > 0 && (fx == nullptr || fpe == nullptr || fas == nullptr)) ||
+      ((noise == nullptr) != (unif == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (C == 0 || n_steps == 0) return static_cast<int>(cudaGetLastError());
+  const Params p{x,        pe,        map,      loc,  L,     lam,      as_change,
+                 y,        sigma,     noise,    unif, fx,    fpe,      fas,
+                 C,        n_steps,   n_frames, thinning, i0, num_warmup,
+                 lr_decay, target_ap, eps,      seed};
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int blocks = (C + kThreads - 1) / kThreads;
+  switch (J) {
+    case 8:
+      arwmh_fused_kernel<8><<<blocks, kThreads, 0, stream>>>(p);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

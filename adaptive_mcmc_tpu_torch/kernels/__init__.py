@@ -1,0 +1,12 @@
+from adaptive_mcmc_tpu_torch.kernels.base import Kernel  # noqa: F401
+from adaptive_mcmc_tpu_torch.kernels.arwmh import (  # noqa: F401
+    ARWMHAdaptState,
+    ARWMHConfig,
+    ARWMHState,
+    arwmh,
+    rwm,
+)
+
+from adaptive_mcmc_tpu_torch.infer.mcmc import register_kernel_factory
+
+register_kernel_factory("arwmh", arwmh)

@@ -1,0 +1,14 @@
+from adaptive_mcmc_tpu_torch.models.base import (  # noqa: F401
+    SiteSpec,
+    Target,
+    folded_student_t_logpdf,
+    half_cauchy_logpdf,
+    normal_logpdf,
+    student_t_logpdf,
+)
+from adaptive_mcmc_tpu_torch.models.targets import (  # noqa: F401
+    eight_schools_noncentered,
+    mvn,
+    std_normal,
+)
+from adaptive_mcmc_tpu_torch.models import data  # noqa: F401

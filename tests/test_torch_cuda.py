@@ -1,0 +1,98 @@
+"""CUDA kernels of adaptive_mcmc_tpu_torch against their plain PyTorch
+versions on the card, and the main path through them.  Marked ``cuda``:
+each test needs a CUDA device and nvcc, and skips where
+torch.cuda.is_available() is false.  Run on a GPU machine with
+``python -m pytest tests/test_torch_cuda.py -q -n 0``."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import adaptive_mcmc_tpu_torch as amt  # noqa: E402
+from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2  # noqa: E402
+from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _chol_inputs(C, d, device, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(C, d, d)) * 0.4
+    L = np.linalg.cholesky(np.einsum("cij,ckj->cik", a, a) + np.eye(d))
+    Lt = torch.tensor(L.transpose(1, 2, 0), dtype=torch.float32,
+                      device=device).contiguous()
+    vt = torch.tensor(rng.normal(size=(d, C)), dtype=torch.float32,
+                      device=device)
+    coef = torch.linspace(0.01, 0.9, C, device=device)
+    return Lt, vt, coef
+
+
+@pytest.mark.parametrize("d", list(range(1, 33)))
+def test_k1_matches_plain_version_for_every_d(cuda, d):
+    Lt, vt, coef = _chol_inputs(37, d, cuda, seed=d)
+    before = k1.launches
+    got = k1.chol_update_cl(Lt, vt, coef)
+    assert k1.launches == before + 1
+    want = k1.chol_update_cl_reference(Lt, vt, coef)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, torch.tril(got.permute(2, 0, 1)).permute(1, 2, 0))
+
+
+def test_k1_downdate_gives_nan(cuda):
+    d, C = 4, 128
+    Lt = torch.eye(d, device=cuda)[:, :, None].expand(d, d, C).contiguous()
+    vt = torch.zeros((d, C), device=cuda)
+    vt[0] = 10.0
+    coef = torch.full((C,), -1.0, device=cuda)
+    got = k1.chol_update_cl(Lt, vt, coef)
+    want = k1.chol_update_cl_reference(Lt, vt, coef)
+    assert bool(torch.isnan(got).any())
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+def test_k2_matches_plain_version_injected(cuda):
+    t = amt.eight_schools_noncentered()
+    cfg = amt.ARWMHConfig(num_warmup=4)
+    C, S, d = 256, 16, t.dim
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.rand((C, d), generator=g, device=cuda) * 4 - 2
+    state = (x, t.potential_fn(x), torch.zeros(C, device=cuda), x.clone(),
+             torch.eye(d, device=cuda).expand(C, d, d).contiguous(),
+             torch.zeros(C, device=cuda),
+             torch.zeros((), dtype=torch.int32, device=cuda))
+    noise = torch.randn((S, C, d), generator=g, device=cuda)
+    unif = torch.rand((S, C), generator=g, device=cuda)
+    before = k2.launches
+    got, gf = k2.build_fused_arwmh(t, cfg)(state, S, 4, 4, noise=noise,
+                                           unif=unif)
+    assert k2.launches == before + 1
+    want, wf = k2.fused_arwmh_reference(t, cfg, state, S, 4, 4, noise=noise,
+                                        unif=unif)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
+    for k in wf:
+        torch.testing.assert_close(gf[k], wf[k], rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_main_path_goes_through_the_kernels(cuda, fused):
+    t = amt.eight_schools_noncentered()
+    k1.launches = k2.launches = 0
+    mcmc = amt.MCMC(amt.arwmh(t, amt.ARWMHConfig(fused=fused)),
+                    num_warmup=200, num_samples=400, thinning=4,
+                    n_chains=256)
+    mcmc.run(torch.Generator(cuda).manual_seed(1))
+    samples = mcmc.get_samples(flat_unconstrained=True)
+    assert samples.is_cuda and samples.shape == (100 * 256, t.dim)
+    assert bool(torch.isfinite(samples).all())
+    assert (k2.launches if fused else k1.launches) > 0

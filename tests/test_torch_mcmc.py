@@ -1,0 +1,193 @@
+"""Port parity for the driver and the slice as a whole: run_mcmc on
+eight-schools with replayed JAX draws, driver shapes and thinning, the MCMC
+API, the diagnostics on shared numpy draws, and a seeded posterior check
+against the JAX run's Monte Carlo band.
+
+Replayed-draw runs are compared at rtol 2e-5, atol 2e-6, normwise per
+field (see test_torch_arwmh.py for why chained float32 trajectories are
+compared normwise); diagnostics at rtol 1e-4 (FFT autocovariances in two
+float32 FFT libraries)."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import adaptive_mcmc_tpu as jamt  # noqa: E402
+from adaptive_mcmc_tpu.infer import diagnostics as jdiag  # noqa: E402
+from adaptive_mcmc_tpu.kernels.base import split_keys  # noqa: E402
+import adaptive_mcmc_tpu_torch as amt  # noqa: E402
+from adaptive_mcmc_tpu_torch import interop  # noqa: E402
+from adaptive_mcmc_tpu_torch.infer import diagnostics as tdiag  # noqa: E402
+
+RTOL, ATOL = 2e-5, 2e-6
+
+
+def replay_draws(keys, n_steps: int, d: int):
+    """The normals and uniforms of the JAX lockstep step's key chain."""
+    noise, unif = [], []
+    for _ in range(n_steps):
+        keys, k_prop, k_acc = split_keys(keys, 3)
+        noise.append(jax.vmap(lambda k: jax.random.normal(k, (d,)))(k_prop))
+        unif.append(jax.vmap(jax.random.uniform)(k_acc))
+    return np.stack(noise), np.stack(unif)
+
+
+def assert_close_normwise(got, want, err=""):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, err
+    assert np.isfinite(want).all() and np.isfinite(got).all(), err
+    bound = ATOL + RTOL * np.max(np.abs(want))
+    worst = np.max(np.abs(got - want))
+    assert worst <= bound, f"{err}: max abs error {worst} > {bound}"
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_run_mcmc_slice_matches_jax_on_replayed_draws(seed):
+    """run_mcmc(arwmh(eight_schools_noncentered())) from the converted JAX
+    init state with the JAX draws: samples and extras equal JAX's."""
+    C, W, N, thin = 8, 10, 20, 2
+    fields = ("potential_energy", "as_change")
+    jt = jamt.eight_schools_noncentered()
+    jk = jamt.arwmh(jt, jamt.ARWMHConfig(num_warmup=W))
+    js = jk.init(jax.random.PRNGKey(seed), n_chains=C)
+    want, want_x, want_last = jamt.run_mcmc(
+        jk, None, W, N, thinning=thin, n_chains=C, extra_fields=fields,
+        init_state=js)
+    noise, unif = replay_draws(js.rng_key, W + N, jt.dim)
+
+    tk = amt.arwmh(amt.eight_schools_noncentered(),
+                   amt.ARWMHConfig(num_warmup=W))
+    got, got_x, got_last = amt.run_mcmc(
+        tk, None, W, N, thinning=thin, n_chains=C, extra_fields=fields,
+        init_state=interop.arwmh_state_from_numpy(
+            jax.tree.map(np.asarray, js)),
+        noise=torch.from_numpy(noise), unif=torch.from_numpy(unif))
+    assert got.shape == (N // thin, C, jt.dim)
+    assert_close_normwise(got.numpy(), want, "samples")
+    for f in fields:
+        assert got_x[f].shape == (N // thin, C)
+        assert_close_normwise(got_x[f].numpy(), want_x[f], f)
+    assert int(got_last.i) == int(want_last.i) == W + N
+    assert_close_normwise(got_last.adapt_state.scale.numpy(),
+                          want_last.adapt_state.scale, "scale")
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_run_mcmc_shapes_and_thinning(fused):
+    t = amt.eight_schools_noncentered()
+    k = amt.arwmh(t, amt.ARWMHConfig(fused=fused))
+    fields = ("potential_energy", "as_change")
+    samples, extras, last = amt.run_mcmc(
+        k, _gen(0), num_warmup=10, num_samples=40, thinning=4, n_chains=5,
+        extra_fields=fields)
+    assert samples.shape == (10, 5, t.dim)
+    for f in fields:
+        assert extras[f].shape == (10, 5)
+    assert int(last.i) == 50
+    # the recorded potential is that of the recorded position
+    np.testing.assert_allclose(
+        extras["potential_energy"][-1].numpy(),
+        t.potential_fn(samples[-1]).numpy(), rtol=1e-6)
+    # thinning=3 collects every third state of the thinning=1 stream
+    s1, _, _ = amt.run_mcmc(k, _gen(1), num_warmup=0, num_samples=12,
+                            n_chains=2)
+    s3, _, _ = amt.run_mcmc(k, _gen(1), num_warmup=0, num_samples=12,
+                            thinning=3, n_chains=2)
+    np.testing.assert_array_equal(s1[2::3].numpy(), s3.numpy())
+    with pytest.raises(ValueError):
+        amt.run_mcmc(k, _gen(1), num_warmup=0, num_samples=10, thinning=3)
+
+
+def test_determinism_same_generator_seed():
+    k = amt.arwmh(amt.eight_schools_noncentered())
+    a, _, _ = amt.run_mcmc(k, _gen(7), 20, 50, n_chains=3)
+    b, _, _ = amt.run_mcmc(k, _gen(7), 20, 50, n_chains=3)
+    c, _, _ = amt.run_mcmc(k, _gen(8), 20, 50, n_chains=3)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert not np.allclose(a.numpy(), c.numpy())
+
+
+def test_mcmc_class_api(capsys):
+    t = amt.eight_schools_noncentered()
+    mcmc = amt.MCMC(amt.arwmh(t), num_warmup=200, num_samples=400,
+                    thinning=2, n_chains=4)
+    mcmc.run(_gen(2), extra_fields=("potential_energy",))
+    sites = mcmc.get_samples()
+    assert set(sites) == {"mu", "tau", "theta_base"}
+    assert sites["mu"].shape == (800,)
+    assert sites["theta_base"].shape == (800, 8)
+    assert bool(torch.all(sites["tau"] > 0))
+    assert mcmc.get_samples(group_by_chain=True)["mu"].shape == (200, 4)
+    assert mcmc.get_extra_fields()["potential_energy"].shape == (200, 4)
+    # the warmup clock was propagated into the kernel config
+    assert mcmc.kernel.config.num_warmup == 200
+    assert "Acceptance rate" in mcmc.diagnostics_str()
+    mcmc.print_summary()
+    out = capsys.readouterr().out
+    assert "theta_base[7]" in out and "r_hat" in out
+    adapt = amt.get_init_adapt_state(amt.arwmh(t), _gen(3),
+                                     position=torch.zeros(t.dim))
+    np.testing.assert_array_equal(adapt.scale[0].numpy(), np.eye(t.dim))
+
+
+def _ar1(n, m, p, phi=0.7, seed=0):
+    rng = np.random.default_rng(seed)
+    eps = rng.normal(size=(n, m, p))
+    x = np.zeros_like(eps)
+    for t in range(1, n):
+        x[t] = phi * x[t - 1] + np.sqrt(1 - phi ** 2) * eps[t]
+    return (x + rng.normal(size=(1, m, p)) * 0.1).astype(np.float32)
+
+
+def test_diagnostics_match_jax():
+    x = _ar1(501, 6, 3)
+    tx = torch.from_numpy(x)
+    np.testing.assert_allclose(tdiag.gelman_rubin(tx).numpy(),
+                               np.asarray(jdiag.gelman_rubin(x)), rtol=1e-4)
+    np.testing.assert_allclose(
+        tdiag.gelman_rubin(tx, split=False).numpy(),
+        np.asarray(jdiag.gelman_rubin(x, split=False)), rtol=1e-4)
+    np.testing.assert_allclose(
+        tdiag.effective_sample_size(tx).numpy(),
+        np.asarray(jdiag.effective_sample_size(x)), rtol=1e-4)
+    np.testing.assert_array_equal(tdiag.split_chains(tx).numpy(),
+                                  np.asarray(jdiag.split_chains(x)))
+    got, want = tdiag.summarize(tx), jdiag.summarize(jnp.asarray(x))
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+
+
+def _mu_band(samples, ess):
+    mu = np.asarray(samples)[..., 0]
+    return float(mu.mean()), float(mu.std() / np.sqrt(ess))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_eight_schools_mu_within_jax_monte_carlo_band(fused):
+    """The port's posterior mean of mu (lockstep, and the fused drive's
+    plain version) lies within 4 combined Monte Carlo standard errors of
+    the JAX run's, each error from its own ESS."""
+    C, W, N = 64, 500, 1500
+    jk = jamt.arwmh(jamt.eight_schools_noncentered(),
+                    jamt.ARWMHConfig(num_warmup=W))
+    js, _, _ = jamt.run_mcmc(jk, jax.random.PRNGKey(11), W, N, n_chains=C)
+    j_mean, j_se = _mu_band(
+        js, float(jdiag.effective_sample_size(js[..., :1])[0]))
+    tk = amt.arwmh(amt.eight_schools_noncentered(),
+                   amt.ARWMHConfig(num_warmup=W, fused=fused))
+    ts, _, last = amt.run_mcmc(tk, _gen(11), W, N, n_chains=C)
+    t_mean, t_se = _mu_band(
+        ts, float(tdiag.effective_sample_size(ts[..., :1])[0]))
+    assert abs(t_mean - j_mean) < 4.0 * np.hypot(t_se, j_se), (
+        t_mean, t_se, j_mean, j_se)
+    assert 0.15 < float(last.mean_accept_prob.mean()) < 0.35
