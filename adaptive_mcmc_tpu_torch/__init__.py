@@ -3,9 +3,10 @@
 The JAX package ``adaptive_mcmc_tpu`` is the reference; this package runs
 the same samplers in PyTorch on an NVIDIA H100, with every TPU kernel of the
 path rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``).  It holds the
-main path so far: batched adaptive ARWMH on eight-schools noncentered,
-driven by ``run_mcmc`` / ``MCMC``, with kernel K1 (the rank-1 Cholesky
-update) and kernel K2 (the fused ARWMH sweep).  It never imports JAX.
+main path so far: batched adaptive ARWMH and ASSS on eight-schools
+noncentered, driven by ``run_mcmc`` / ``MCMC``, with kernel K1 (the rank-1
+Cholesky update), kernel K2 (the fused ARWMH sweep) and kernel K3 (the
+fused ASSS sweep, ``ASSSConfig(fused=True)``).  It never imports JAX.
 
     import torch
     import adaptive_mcmc_tpu_torch as amt
@@ -15,6 +16,8 @@ update) and kernel K2 (the fused ARWMH sweep).  It never imports JAX.
                     thinning=10, n_chains=4096)
     mcmc.run(torch.Generator("cuda").manual_seed(0))
     mcmc.print_summary()
+
+    asss = amt.asss(target, amt.ASSSConfig(fused=True))   # through K3
 """
 
 import torch
@@ -23,6 +26,7 @@ from adaptive_mcmc_tpu_torch import kernels  # noqa: F401  (registers)
 from adaptive_mcmc_tpu_torch.models import (  # noqa: F401
     Target,
     eight_schools_noncentered,
+    gaussian_mixture_1d,
     mvn,
     std_normal,
 )
@@ -30,7 +34,12 @@ from adaptive_mcmc_tpu_torch.kernels import (  # noqa: F401
     ARWMHAdaptState,
     ARWMHConfig,
     ARWMHState,
+    ASSSAdaptState,
+    ASSSConfig,
+    ASSSDraws,
+    ASSSState,
     arwmh,
+    asss,
     rwm,
 )
 from adaptive_mcmc_tpu_torch.infer import (  # noqa: F401

@@ -3,8 +3,9 @@
 Counterpart of ``adaptive_mcmc_tpu/infer/mcmc.py``: ``run_mcmc`` runs the
 warmup, then a thinned collection into preallocated ``(num_collect, C, ...)``
 buffers, so the unthinned draws never exist in memory.  Kernels with a
-``collect_n`` driver (ARWMH with ``fused=True``) record the frames inside
-one launch instead.  PyTorch runs eagerly, so the loop over steps is a
+``step_n`` driver (ASSS, fused ARWMH) advance through it, and kernels with a
+``collect_n`` driver (ASSS, fused ARWMH) record the frames inside it
+instead.  PyTorch runs eagerly, so the loop over steps is a
 Python loop.
 """
 
@@ -18,6 +19,8 @@ import torch
 Tensor = torch.Tensor
 
 _KERNEL_FACTORIES: dict = {}
+# kernels whose step_n / step take injected ``noise`` / ``unif`` draws
+_NOISE_UNIF_KERNELS = ("arwmh", "rwm")
 
 
 def register_kernel_factory(name: str, factory: Callable) -> None:
@@ -45,7 +48,8 @@ def run_mcmc(
     (num_samples // thinning, chains, dim) in *unconstrained* space and
     ``extras`` maps each requested state field to its thinned trajectory.
     ``noise`` (T, C, d) and ``unif`` (T, C), with T = num_warmup +
-    num_samples, replace the generator's draws step for step.
+    num_samples, replace the generator's draws step for step; only ARWMH
+    and RWM take them (ASSS replays go through its ``step``).
     """
     if num_samples % thinning:
         raise ValueError("num_samples must divide by thinning")
@@ -64,23 +68,26 @@ def run_mcmc(
     total = num_warmup + num_samples
     if (noise is None) != (unif is None):
         raise ValueError("pass both noise and unif, or neither")
-    if noise is not None and (noise.shape[0] != total
-                              or unif.shape[0] != total):
-        raise ValueError(f"injected draws must cover {total} steps")
+    if noise is not None:
+        if kernel.name not in _NOISE_UNIF_KERNELS:
+            raise ValueError(
+                f"run_mcmc replays injected noise/unif only for "
+                f"{_NOISE_UNIF_KERNELS}; kernel {kernel.name!r} takes its "
+                f"injected draws through its own step")
+        if noise.shape[0] != total or unif.shape[0] != total:
+            raise ValueError(f"injected draws must cover {total} steps")
 
-    def draws(t0: int, n: int):
+    def draws(t0: int, n: int) -> tuple:
         if noise is None:
-            return None, None
+            return ()
         return noise[t0:t0 + n], unif[t0:t0 + n]
 
     def advance(state, t0: int, n: int):
         if kernel.step_n is not None:
             return kernel.step_n(state, n, generator, *draws(t0, n))
         for t in range(t0, t0 + n):
-            z, u = draws(t, 1)
             state = kernel.step(state, generator,
-                                None if z is None else z[0],
-                                None if u is None else u[0])
+                                *(a[0] for a in draws(t, 1)))
         return state
 
     if num_warmup:
@@ -181,13 +188,19 @@ class MCMC:
         print(summary_table(self.kernel.target, self._samples))
 
     def diagnostics_str(self) -> str:
+        """Progress diagnostics: the acceptance rate (and step size) of
+        states that carry them, otherwise the iteration and the mean
+        potential energy (ASSS)."""
         s = self.last_state
-        ap = float(torch.mean(s.mean_accept_prob))
-        a = getattr(s, "adapt_state", None)
-        if hasattr(a, "log_step_size"):
-            ss = float(torch.mean(torch.exp(a.log_step_size)))
-            return f"Acceptance rate: {ap:.2f}, Step size: {ss:.3f}"
-        return f"Acceptance rate: {ap:.2f}"
+        if hasattr(s, "mean_accept_prob"):
+            ap = float(torch.mean(s.mean_accept_prob))
+            a = getattr(s, "adapt_state", None)
+            if hasattr(a, "log_step_size"):
+                ss = float(torch.mean(torch.exp(a.log_step_size)))
+                return f"Acceptance rate: {ap:.2f}, Step size: {ss:.3f}"
+            return f"Acceptance rate: {ap:.2f}"
+        return (f"Iteration: {int(s.i)}, Potential Energy: "
+                f"{float(torch.mean(s.potential_energy)):.2f}")
 
 
 def get_init_adapt_state(kernel, generator, position=None,

@@ -1,4 +1,4 @@
-"""Carrying ARWMH state between the JAX package and the port.
+"""Carrying ARWMH and ASSS state between the JAX package and the port.
 
 This system has no weights: what must match between the two packages is the
 kernel state and the target's data.  Targets of both packages take their
@@ -12,6 +12,8 @@ kernel state crosses as numpy arrays:
   counterpart: the port takes a ``torch.Generator`` per call.
 * :func:`arwmh_state_to_numpy` returns the port's ``ARWMHState`` with numpy
   leaves.
+* :func:`asss_state_from_numpy` and :func:`asss_state_to_numpy` do the same
+  for ``ASSSState``, whose JAX ``rng_key`` is dropped likewise.
 """
 
 from __future__ import annotations
@@ -20,37 +22,67 @@ import numpy as np
 import torch
 
 from adaptive_mcmc_tpu_torch.kernels.arwmh import ARWMHAdaptState, ARWMHState
+from adaptive_mcmc_tpu_torch.kernels.asss import ASSSAdaptState, ASSSState
+
+
+def _f32(a, device):
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def _i32(a, device):
+    return torch.tensor(np.asarray(a, np.int32), device=device)
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
 
 
 def arwmh_state_from_numpy(state, device=None) -> ARWMHState:
-    def f32(a):
-        return torch.tensor(np.asarray(a, np.float32), device=device)
-
     a = state.adapt_state
     return ARWMHState(
-        i=torch.tensor(np.asarray(state.i, np.int32), device=device),
-        position=f32(state.position),
-        potential_energy=f32(state.potential_energy),
-        mean_accept_prob=f32(state.mean_accept_prob),
+        i=_i32(state.i, device),
+        position=_f32(state.position, device),
+        potential_energy=_f32(state.potential_energy, device),
+        mean_accept_prob=_f32(state.mean_accept_prob, device),
         adapt_state=ARWMHAdaptState(
-            loc=f32(a.loc), scale=f32(a.scale),
-            log_step_size=f32(a.log_step_size),
+            loc=_f32(a.loc, device), scale=_f32(a.scale, device),
+            log_step_size=_f32(a.log_step_size, device),
         ),
-        as_change=f32(state.as_change),
+        as_change=_f32(state.as_change, device),
     )
 
 
 def arwmh_state_to_numpy(state: ARWMHState) -> ARWMHState:
-    def host(t):
-        return t.detach().cpu().numpy()
-
     a = state.adapt_state
     return ARWMHState(
-        i=host(state.i),
-        position=host(state.position),
-        potential_energy=host(state.potential_energy),
-        mean_accept_prob=host(state.mean_accept_prob),
-        adapt_state=ARWMHAdaptState(host(a.loc), host(a.scale),
-                                    host(a.log_step_size)),
-        as_change=host(state.as_change),
+        i=_host(state.i),
+        position=_host(state.position),
+        potential_energy=_host(state.potential_energy),
+        mean_accept_prob=_host(state.mean_accept_prob),
+        adapt_state=ARWMHAdaptState(_host(a.loc), _host(a.scale),
+                                    _host(a.log_step_size)),
+        as_change=_host(state.as_change),
+    )
+
+
+def asss_state_from_numpy(state, device=None) -> ASSSState:
+    a = state.adapt_state
+    return ASSSState(
+        i=_i32(state.i, device),
+        position=_f32(state.position, device),
+        potential_energy=_f32(state.potential_energy, device),
+        adapt_state=ASSSAdaptState(loc=_f32(a.loc, device),
+                                   scale=_f32(a.scale, device)),
+        as_change=_f32(state.as_change, device),
+    )
+
+
+def asss_state_to_numpy(state: ASSSState) -> ASSSState:
+    a = state.adapt_state
+    return ASSSState(
+        i=_host(state.i),
+        position=_host(state.position),
+        potential_energy=_host(state.potential_energy),
+        adapt_state=ASSSAdaptState(_host(a.loc), _host(a.scale)),
+        as_change=_host(state.as_change),
     )

@@ -6,7 +6,15 @@ from adaptive_mcmc_tpu_torch.kernels.arwmh import (  # noqa: F401
     arwmh,
     rwm,
 )
+from adaptive_mcmc_tpu_torch.kernels.asss import (  # noqa: F401
+    ASSSAdaptState,
+    ASSSConfig,
+    ASSSDraws,
+    ASSSState,
+    asss,
+)
 
 from adaptive_mcmc_tpu_torch.infer.mcmc import register_kernel_factory
 
 register_kernel_factory("arwmh", arwmh)
+register_kernel_factory("asss", asss)

@@ -36,6 +36,10 @@ class Kernel:
     collect_n: Any = None
     # Field names ``collect_n`` records.
     collect_fields: tuple = ()
+    # Optional diagnostics probe ``probe(state, n_steps, ...) -> (state,
+    # info)`` exposing kernel-internal cost drivers (ASSS: per-chain mean
+    # shrinkage trips).
+    probe: Any = None
 
 
 def nan_to_inf(pe: Tensor) -> Tensor:

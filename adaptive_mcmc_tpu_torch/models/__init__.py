@@ -8,6 +8,7 @@ from adaptive_mcmc_tpu_torch.models.base import (  # noqa: F401
 )
 from adaptive_mcmc_tpu_torch.models.targets import (  # noqa: F401
     eight_schools_noncentered,
+    gaussian_mixture_1d,
     mvn,
     std_normal,
 )

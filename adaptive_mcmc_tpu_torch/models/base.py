@@ -123,6 +123,16 @@ def _log(v):
     return torch.log(v) if isinstance(v, Tensor) else math.log(v)
 
 
+def sum_in_order(a: Tensor, dim: int = -1) -> Tensor:
+    """Sum over ``dim`` one slice at a time, left to right: the order the
+    fused CUDA kernels sum in, so that kernel and plain version round
+    alike."""
+    s = a.select(dim, 0)
+    for k in range(1, a.shape[dim]):
+        s = s + a.select(dim, k)
+    return s
+
+
 def normal_logpdf(x, loc=0.0, scale=1.0):
     z = (x - loc) / scale
     return -0.5 * (z * z + _LOG_2PI) - _log(scale)

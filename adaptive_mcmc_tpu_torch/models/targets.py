@@ -1,10 +1,11 @@
 """Concrete targets with batched potentials (PyTorch).
 
 Counterpart of ``adaptive_mcmc_tpu/models/targets.py``: the eight-schools
-noncentered posterior of the main path, plus the synthetic ``std_normal`` and
-``mvn`` targets of the statistical tests.  Each potential takes ``(C, dim)``
-and returns ``(C,)``, written in the same operation order as the JAX
-package's per-chain potential so both round alike in float32.
+noncentered posterior of the main path, plus the synthetic ``std_normal``,
+``gaussian_mixture_1d`` and ``mvn`` targets of the statistical tests.  Each
+potential takes ``(C, dim)`` and returns ``(C,)``, written in the same
+operation order as the JAX package's per-chain potential so both round
+alike in float32.
 """
 
 from __future__ import annotations
@@ -19,19 +20,10 @@ from adaptive_mcmc_tpu_torch.models.base import (
     Target,
     half_cauchy_logpdf,
     normal_logpdf,
+    sum_in_order,
 )
 
 _LOG_2PI_F32 = float(np.log(np.float32(2 * np.pi)))
-
-
-def _sum_cols(a):
-    """Sum over the last axis column by column, left to right: the order
-    the fused CUDA kernel sums in, so that kernel and plain version round
-    alike."""
-    s = a[..., 0]
-    for k in range(1, a.shape[-1]):
-        s = s + a[..., k]
-    return s
 
 
 def eight_schools_noncentered(dataset: dict | None = None) -> Target:
@@ -50,9 +42,9 @@ def eight_schools_noncentered(dataset: dict | None = None) -> Target:
         tau = torch.exp(log_tau)
         lp = normal_logpdf(mu, 0.0, 5.0)
         lp = lp + (half_cauchy_logpdf(tau, 5.0) + log_tau)
-        lp = lp + _sum_cols(normal_logpdf(tb))
+        lp = lp + sum_in_order(normal_logpdf(tb))
         theta = mu[:, None] + tau[:, None] * tb
-        lp = lp + _sum_cols(normal_logpdf(c["y"], theta, c["sigma"]))
+        lp = lp + sum_in_order(normal_logpdf(c["y"], theta, c["sigma"]))
         return -lp
 
     return Target(
@@ -75,6 +67,24 @@ def std_normal(dim: int = 1) -> Target:
     return Target(
         name=f"std_normal_{dim}d", dim=dim, potential_fn=potential,
         sites=(SiteSpec("x", dim, (dim,)),),
+    )
+
+
+def gaussian_mixture_1d(locs=(-1.0, 1.0), scale=0.1,
+                        weights=(0.5, 0.5)) -> Target:
+    """Two-component 1-D Gaussian mixture (the mode-switching target of
+    the statistical tests)."""
+    consts = DeviceConstants(locs=np.asarray(locs, np.float32),
+                             log_w=np.log(np.asarray(weights, np.float32)))
+
+    def potential(x):
+        c = consts.on(x.device)
+        comp = normal_logpdf(x[:, :1], c["locs"], scale) + c["log_w"]
+        return -torch.logsumexp(comp, dim=-1)
+
+    return Target(
+        name="gaussian_mixture_1d", dim=1, potential_fn=potential,
+        sites=(SiteSpec("x", 1, ()),),
     )
 
 

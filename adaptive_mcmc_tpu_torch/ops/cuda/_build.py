@@ -1,11 +1,13 @@
 """Build the package's CUDA sources with nvcc and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exports a plain C interface and is compiled at first
-use into ``_build/lib<name>-<hash>.so``, where ``<hash>`` covers the source
-and the compiler flags, so an edited source rebuilds and an unchanged one is
-loaded as built.  Every pointer and the stream cross as ``ctypes.c_void_p``;
-every launch function returns ``cudaGetLastError()``, which :func:`check`
-turns into an exception.
+use into ``_build/lib<name>-<hash>.so``.  ``<hash>`` (:func:`source_digest`)
+covers the source, every header it includes with quotes (``common.cuh``),
+and the compiler flags, so an edited source or header rebuilds and an
+unchanged one is loaded as built.  :func:`build` compiles several libraries
+at once, one nvcc process each.  Every pointer and the stream cross as
+``ctypes.c_void_p``; every launch function returns ``cudaGetLastError()``,
+which :func:`check` turns into an exception.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, IEEE division and square root, and no
 FMA contraction (``-fmad=false``), so that the kernels round like the plain
@@ -19,10 +21,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
@@ -33,10 +37,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
     "-prec-div=true", "-prec-sqrt=true",
 )
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 build_seconds: dict = {}   # name -> nvcc wall seconds in this process
 
 
@@ -55,30 +60,71 @@ def _nvcc() -> str:
     )
 
 
+def _sources(src: Path) -> list:
+    """``src`` and every header it includes with quotes, recursively, each
+    once, in include order."""
+    out, todo = [], [src]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return out
+
+
+def source_digest(src: Path) -> str:
+    """Hash of ``src``, the local headers it includes and the nvcc flags:
+    the key of its built library."""
+    h = hashlib.sha256()
+    for path in _sources(src):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}-{source_digest(CSRC / f'{name}.cu')}.so"
+
+
+def _compile(nvcc: str, name: str, lib: Path):
+    """One nvcc run into ``lib``; returns an error message or None."""
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds[name] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        return (f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return None
+
+
+def build(*names: str) -> None:
+    """Compile each library of ``names`` that is not built yet, one nvcc
+    process each, all started together; raises if any build fails."""
+    with _LOCK:
+        todo = [(n, _lib_path(n)) for n in names]
+        todo = [(n, lib) for n, lib in todo if not lib.exists()]
+        if not todo:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        with ThreadPoolExecutor(len(todo)) as pool:
+            errors = list(pool.map(lambda job: _compile(nvcc, *job), todo))
+        failed = [e for e in errors if e]
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; raises on failure."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_seconds[name] = time.perf_counter() - t0
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src.name} (exit {proc.returncode}):\n"
-                    f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, lib_path)
-        _LIBS[name] = ctypes.CDLL(str(lib_path))
+        if name not in _LIBS:
+            build(name)
+            _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return _LIBS[name]
 
 

@@ -31,23 +31,14 @@ import ctypes
 import torch
 
 from adaptive_mcmc_tpu_torch.kernels.base import nan_to_inf
-from adaptive_mcmc_tpu_torch.ops.cuda import _build
+from adaptive_mcmc_tpu_torch.ops.cuda import _build, check_device_potential
 from adaptive_mcmc_tpu_torch.ops.cuda.chol_update import (
     chol_update_cl_reference,
 )
 
 Tensor = torch.Tensor
 
-SUPPORTED_TARGETS = ("eight_schools_noncentered",)
 launches = 0
-
-
-def _check_target(target) -> None:
-    if target.name not in SUPPORTED_TARGETS:
-        raise NotImplementedError(
-            f"the fused ARWMH kernel has a device potential for "
-            f"{SUPPORTED_TARGETS} only, not {target.name!r}"
-        )
 
 
 def _gamma_of(i: int, num_warmup: int, lr_decay: float, device):
@@ -227,7 +218,7 @@ def fused_arwmh_reference(target, config, state, n_steps: int,
     """Plain PyTorch version of K2 on any device: a torch loop of the step
     math in the kernel's operation order, same arguments and return layout
     as ``drive``."""
-    _check_target(target)
+    check_device_potential(target, "fused ARWMH")
     if noise is None and generator is None:
         raise ValueError("a torch.Generator or injected draws are needed")
     return _drive(target, config, state, n_steps, n_frames, thinning,
@@ -236,7 +227,7 @@ def fused_arwmh_reference(target, config, state, n_steps: int,
 
 def build_fused_arwmh(target, config):
     """Return the fused ARWMH ``drive`` for ``target`` under ``config``."""
-    _check_target(target)
+    check_device_potential(target, "fused ARWMH")
 
     def drive(state, n_steps: int, n_frames: int = 0, thinning: int = 1,
               generator=None, noise=None, unif=None):

@@ -1,0 +1,374 @@
+"""Kernel K3: the fused ASSS sweep, wrapper and plain version.
+
+Replaces the Pallas kernel built by ``build_fused_asss`` in
+``adaptive_mcmc_tpu/ops/pallas/asss_fused.py`` (body ``_make_kernel``):
+every chain runs its own slice-sampling state machine for ``n_steps``
+transitions in one launch, and thinned frames stream out as each chain
+lands them.  The CUDA source is ``csrc/asss_fused.cu`` (one thread per
+chain, state in registers, eight-schools noncentered only).
+
+``build_fused_asss(target, config)`` returns ``drive(state, n_steps,
+n_frames=0, thinning=1, generator=None, unif3=None, n01=None,
+return_iters=False)`` with the JAX drive's layouts: ``state`` is ``(x, pe,
+loc, scale, i0, as_change)`` chains-first; it returns ``(new_state,
+frames)``, ``new_state`` of the same layout with ``i0 + n_steps``, and
+``frames`` ``{"position": (C, F, d), "potential_energy": (C, F),
+"as_change": (C, F)}`` (empty when ``n_frames == 0``).  With
+``return_iters`` it also returns each chain's iteration count (C,) int32.
+
+The state machine (:func:`run_machine`, one masked chains-last loop over
+iterations, for any target): iteration 0 opens each chain's first
+transition; every later iteration evaluates the potential once per chain
+at its current angle, lands chains whose slice test passes (or that used
+``max_shrinkage_iters`` trips: the bail-out stays put), adapts and opens the
+next transition for them, and shrinks the bracket of the others.  The slice
+level reuses the stored U(x), the landing potential is the accepting
+iteration's U(x'), and the adaptation clock is per chain (``i0 + done``).
+The JAX kernel also evaluates the potential in iteration 0 and discards the
+result; skipping that evaluation changes nothing, and iteration 0 still
+consumes draw row 0.  The pipelined ``step_n`` of ``kernels/asss.py`` runs
+the same machine with the rank-1 update through kernel K1.
+
+Draws: injected ``unif3`` (R, 3, C), rows ``(u_shrink, u_level, u_theta)``,
+and ``n01`` (R, d+1, C) make a run deterministic.  Chain c reads row
+``min(k, R - 1)`` in its own k-th iteration.  Otherwise the kernel draws
+from a counter-based Philox4x32-10 seeded from ``generator``, and the plain
+version draws from ``generator`` directly: the two agree in distribution,
+not bitwise.
+
+Agreement on injected draws.  The kernel has no barrier between chains, so
+kernel and plain version consume the same rows and agree in every call.
+The JAX kernel synchronises chains at the end of each chunk of 16 frames;
+a chain that waits there skips rows.  So the port equals the JAX kernel row
+for row when the call has one chunk (``n_frames == 0`` or ``n_frames <=
+16``); with more chunks the rows shift after the first barrier and the two
+agree in distribution only.
+
+Under CUDA-graph capture the plain version cannot read the device to test
+for chains still running, so with injected draws it then runs exactly R
+iterations: capture it only with rows for every iteration (an eager call's
+iteration counts tell how many).
+
+Dispatch depends on the state's device alone: CPU tensors run
+:func:`fused_asss_reference`, CUDA tensors launch the kernel or raise
+(``NotImplementedError`` for a target without a device potential).
+``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from adaptive_mcmc_tpu_torch.kernels.base import nan_to_inf
+from adaptive_mcmc_tpu_torch.models.base import sum_in_order
+from adaptive_mcmc_tpu_torch.ops.cuda import _build, check_device_potential
+from adaptive_mcmc_tpu_torch.ops.cuda.chol_update import (
+    chol_update_cl_reference,
+)
+
+Tensor = torch.Tensor
+
+TWO_PI = 6.2831853071795864769
+launches = 0
+
+
+def sigma_cl(S: Tensor, eps: float) -> Tensor:
+    """The whitening factor ``(S + eps I) sqrt(d)`` of a chains-last
+    ``(d, d, C)`` scale."""
+    d = S.shape[0]
+    eye = torch.eye(d, dtype=S.dtype, device=S.device)[:, :, None]
+    return (S + eps * eye) * math.sqrt(d)
+
+
+def project_cl(x: Tensor, loc: Tensor, sig: Tensor) -> Tensor:
+    """R^d -> S^d chains-last: ``x``/``loc`` (d, C) to (d+1, C), whitening
+    by forward substitution through the lower ``sig`` (d, d, C)."""
+    d = x.shape[0]
+    ys = x - loc
+    rows = []
+    for k in range(d):
+        xk = ys[k] / sig[k, k]
+        rows.append(xk)
+        if k + 1 < d:
+            ys = ys - sig[:, k] * xk[None]
+    xr = torch.stack(rows)
+    nsq = sum_in_order(xr * xr, 0)
+    z_head = 2.0 * xr / (nsq + 1.0)
+    z_last = (nsq - 1.0) / (nsq + 1.0)
+    return torch.cat([z_head, z_last[None]])
+
+
+def inverse_cl(z: Tensor, loc: Tensor, sig: Tensor) -> Tensor:
+    """S^d -> R^d chains-last, summing the columns of ``sig`` in order."""
+    d = loc.shape[0]
+    xb = z[:d] / (1.0 - z[d])
+    x = loc
+    for j in range(d):
+        x = x + sig[:, j] * xb[j][None]
+    return x
+
+
+def begin_cl(n01, u_level, u_theta, x, pe, loc, sig):
+    """Open a transition at ``(x, pe)``: sphere point, tangent velocity,
+    slice level from the stored potential, angle and bracket."""
+    d = x.shape[0]
+    z = project_cl(x, loc, sig)
+    pe_t = pe + d * torch.log(1.0 - z[d])
+    v = n01 - sum_in_order(n01 * z, 0)[None] * z
+    v = v / torch.sqrt(sum_in_order(v * v, 0))[None]
+    t_pe = pe_t - torch.log(u_level)
+    theta = u_theta * TWO_PI
+    return z, v, t_pe, theta, theta - TWO_PI, theta
+
+
+def gamma_cl(i: Tensor, num_warmup: int, lr_decay: float) -> Tensor:
+    """Per-chain adaptation rate for global steps ``i`` (C,) int, the clock
+    restarting after warmup; ``n^-r`` as ``exp(-r log n)``."""
+    itr = i + 1
+    nf = torch.where(i < num_warmup, itr, itr - num_warmup).to(torch.float32)
+    if lr_decay == 1.0:
+        return 1.0 / nf
+    return torch.exp(-lr_decay * torch.log(nf))
+
+
+def rank1_guarded_cl(S: Tensor, delta: Tensor, gamma: Tensor) -> Tensor:
+    """``chol((1 - gamma) S Sᵀ + gamma delta deltaᵀ)`` per chain in plain
+    PyTorch, keeping the old factor where the update has a NaN."""
+    new = chol_update_cl_reference(torch.sqrt(1.0 - gamma) * S, delta, gamma)
+    bad = torch.isnan(new).any(dim=0).any(dim=0)
+    return torch.where(bad, S, new)
+
+
+def run_machine(target, config, state, n_steps: int, n_frames: int = 0,
+                thinning: int = 1, generator=None, unif3=None, n01=None,
+                rank1=rank1_guarded_cl):
+    """The ASSS state machine in plain PyTorch, one masked chains-last loop
+    over iterations: same arguments as ``drive`` (with the rank-1 update
+    ``rank1(S, delta, gamma)`` on chains-last tensors), returns
+    ``(new_state, frames, iters)``."""
+    st, frames, i0, inject = _prepare(state, n_steps, n_frames, thinning,
+                                      generator, unif3, n01)
+    x, pe, loc, S, as_chg = st["x"], st["pe"], st["loc"], st["S"], st["as"]
+    d, C = x.shape
+    dev = x.device
+    iters = torch.zeros(C, dtype=torch.int32, device=dev)
+    if n_steps == 0 or C == 0:
+        return _finish(st, frames, i0, n_steps, iters)
+    eps = float(config.eps)
+    rows = unif3.shape[0] if inject else 0
+
+    def draws(s: int):
+        if inject:
+            r = min(s, rows - 1)
+            return unif3[r, 0], unif3[r, 1], unif3[r, 2], n01[r]
+        u = torch.rand((3, C), generator=generator, device=dev)
+        n = torch.randn((d + 1, C), generator=generator, device=dev)
+        return u[0], 1.0 - u[1], u[2], n
+
+    _, ul, ut, n = draws(0)
+    z, v, t_pe, theta, tmin, tmax = begin_cl(n, ul, ut, x, pe, loc,
+                                             sigma_cl(S, eps))
+    trips = torch.zeros(C, dtype=torch.int32, device=dev)
+    done = torch.zeros(C, dtype=torch.int32, device=dev)
+    iters += 1
+    ar = torch.arange(C, device=dev)
+
+    def running(s: int) -> bool:
+        if inject and x.is_cuda and torch.cuda.is_current_stream_capturing():
+            return s < rows
+        return bool((done < n_steps).any())
+
+    s = 1
+    while running(s):
+        us, ul, ut, n = draws(s)
+        active = done < n_steps
+        sig = sigma_cl(S, eps)
+        z_th = z * torch.cos(theta)[None] + v * torch.sin(theta)[None]
+        pole = 1.0 - z_th[d]
+        x_prop = inverse_cl(z_th, loc, sig)
+        u_prop = nan_to_inf(target.potential_fn(x_prop.t()))
+        good = (u_prop + d * torch.log(pole) <= t_pe) & (pole >= eps)
+        bail = trips >= config.max_shrinkage_iters
+        land = active & (good | bail)
+        move = land & ~bail
+        x = torch.where(move[None], x_prop, x)
+        pe = torch.where(move, u_prop, pe)
+        if config.adapt:
+            gamma = gamma_cl(i0 + done, config.num_warmup, config.lr_decay)
+            delta = x - loc
+            loc_land = loc + gamma * delta
+            S_land = rank1(S, delta, gamma)
+            dl, dS = loc_land - loc, S_land - S
+            chg = torch.sqrt(torch.sum(dl * dl, dim=0)) \
+                + torch.sqrt(torch.sum(dS * dS, dim=(0, 1)))
+            loc = torch.where(land[None], loc_land, loc)
+            S = torch.where(land[None, None], S_land, S)
+            as_chg = torch.where(land, chg, as_chg)
+        done = done + land.to(torch.int32)
+        if n_frames:
+            f = done // thinning - 1
+            rec = land & (done % thinning == 0) & (f < n_frames)
+            f = f.clamp(0, n_frames - 1)
+            frames["x"][f, :, ar] = torch.where(rec[:, None], x.t(),
+                                                frames["x"][f, :, ar])
+            frames["pe"][f, ar] = torch.where(rec, pe, frames["pe"][f, ar])
+            frames["as"][f, ar] = torch.where(rec, as_chg,
+                                              frames["as"][f, ar])
+        nz, nv, nt, nth, ntn, ntx = begin_cl(n, ul, ut, x, pe, loc,
+                                             sigma_cl(S, eps))
+        shrink = active & ~land
+        s_tmin = torch.where(shrink & (theta < 0.0), theta, tmin)
+        s_tmax = torch.where(shrink & (theta >= 0.0), theta, tmax)
+        s_theta = s_tmin + us * (s_tmax - s_tmin)
+        z = torch.where(land[None], nz, z)
+        v = torch.where(land[None], nv, v)
+        t_pe = torch.where(land, nt, t_pe)
+        theta = torch.where(land, nth, torch.where(shrink, s_theta, theta))
+        tmin = torch.where(land, ntn, s_tmin)
+        tmax = torch.where(land, ntx, s_tmax)
+        trips = torch.where(land, 0, trips + shrink.to(torch.int32))
+        iters += active.to(torch.int32)
+        s += 1
+    st.update(x=x, pe=pe, loc=loc, S=S, **{"as": as_chg})
+    return _finish(st, frames, i0, n_steps, iters)
+
+
+def _prepare(state, n_steps, n_frames, thinning, generator, unif3, n01):
+    """Validate a call and make chains-last copies of the state (the
+    kernel updates them in place; the caller's state stays as it was) and
+    zeroed frame buffers."""
+    x, pe, loc, S, i0, as_in = state
+    i0 = int(i0)
+    C, d = x.shape
+    dev = x.device
+    if thinning < 1 or n_frames < 0 or n_frames * thinning > n_steps:
+        raise ValueError("need thinning >= 1 and n_frames * thinning <= "
+                         "n_steps")
+    inject = unif3 is not None
+    if inject != (n01 is not None):
+        raise ValueError("pass both unif3 and n01, or neither")
+    if inject:
+        if unif3.dim() != 3 or tuple(unif3.shape[1:]) != (3, C) \
+                or unif3.shape[0] < 1 \
+                or tuple(n01.shape) != (unif3.shape[0], d + 1, C):
+            raise ValueError(
+                f"injected draws must be unif3 (R, 3, {C}) and n01 "
+                f"(R, {d + 1}, {C}); got {tuple(unif3.shape)} and "
+                f"{tuple(n01.shape)}")
+    elif generator is None:
+        raise ValueError("a torch.Generator or injected draws are needed")
+
+    def copy(t):
+        return t.clone(memory_format=torch.contiguous_format)
+
+    st = {"x": copy(x.t()), "pe": copy(pe), "loc": copy(loc.t()),
+          "S": copy(S.permute(1, 2, 0)), "as": copy(as_in)}
+    frames = {}
+    if n_frames:
+        frames = {
+            "x": torch.zeros((n_frames, d, C), dtype=torch.float32,
+                             device=dev),
+            "pe": torch.zeros((n_frames, C), dtype=torch.float32, device=dev),
+            "as": torch.zeros((n_frames, C), dtype=torch.float32, device=dev),
+        }
+    return st, frames, i0, inject
+
+
+def _finish(st, frames, i0: int, n_steps: int, iters: Tensor):
+    """The chains-last results in the drive's return layout, with the
+    iteration counts."""
+    new_state = (
+        st["x"].t().contiguous(), st["pe"], st["loc"].t().contiguous(),
+        st["S"].permute(2, 0, 1).contiguous(),
+        torch.full((), i0 + n_steps, dtype=torch.int32,
+                   device=st["x"].device),
+        st["as"],
+    )
+    out = {}
+    if frames:
+        out = {"position": frames["x"].permute(2, 0, 1),      # (C, F, d)
+               "potential_energy": frames["pe"].t(),
+               "as_change": frames["as"].t()}
+    return new_state, out, iters
+
+
+def _launch(target, config, state, n_steps: int, n_frames: int,
+            thinning: int, generator, unif3, n01):
+    """Run K3 on CUDA tensors; same return as :func:`run_machine`."""
+    global launches
+    check_device_potential(target, "fused ASSS")
+    st, frames, i0, inject = _prepare(state, n_steps, n_frames, thinning,
+                                      generator, unif3, n01)
+    d, C = st["x"].shape
+    dev = st["x"].device
+    iters = torch.zeros(C, dtype=torch.int32, device=dev)
+    if n_steps == 0 or C == 0:
+        return _finish(st, frames, i0, n_steps, iters)
+    seed = 0
+    if inject:
+        unif3, n01 = unif3.contiguous(), n01.contiguous()
+    else:
+        seed = int(torch.randint(0, 2 ** 63 - 1, (1,), generator=generator,
+                                 device=generator.device).item())
+    consts = target.data.on(dev)
+    for t in list(st.values()) + [unif3, n01, *frames.values()]:
+        if t is not None and (not t.is_cuda or t.device != dev
+                              or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError("K3 takes contiguous float32 tensors on one "
+                             "CUDA device")
+    fn = _build.function(
+        "asss_fused", "asss_fused_eight_schools",
+        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
+        + [ctypes.c_uint64, ctypes.c_void_p],
+    )
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = fn(
+        ptr(st["x"]), ptr(st["pe"]), ptr(st["loc"]), ptr(st["S"]),
+        ptr(st["as"]), ptr(iters), ptr(consts["y"]), ptr(consts["sigma"]),
+        ptr(unif3), ptr(n01), ptr(frames.get("x")), ptr(frames.get("pe")),
+        ptr(frames.get("as")),
+        C, consts["y"].shape[0], unif3.shape[0] if inject else 0, n_steps,
+        n_frames, thinning, i0, int(config.num_warmup),
+        int(config.max_shrinkage_iters), int(bool(config.adapt)),
+        float(config.lr_decay), float(config.eps), math.sqrt(d), seed,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(err, "asss_fused_eight_schools")
+    launches += 1
+    return _finish(st, frames, i0, n_steps, iters)
+
+
+def fused_asss_reference(target, config, state, n_steps: int,
+                         n_frames: int = 0, thinning: int = 1,
+                         generator=None, unif3=None, n01=None,
+                         return_iters: bool = False):
+    """Plain PyTorch version of K3 on any device and for any target: the
+    state machine of :func:`run_machine`, same arguments and return layout
+    as ``drive``."""
+    out = run_machine(target, config, state, n_steps, n_frames, thinning,
+                      generator, unif3, n01)
+    return out if return_iters else out[:2]
+
+
+def build_fused_asss(target, config):
+    """Return the fused ASSS ``drive`` for ``target`` under ``config``."""
+
+    def drive(state, n_steps: int, n_frames: int = 0, thinning: int = 1,
+              generator=None, unif3=None, n01=None,
+              return_iters: bool = False):
+        if not state[0].is_cuda:
+            return fused_asss_reference(target, config, state, n_steps,
+                                        n_frames, thinning, generator, unif3,
+                                        n01, return_iters)
+        out = _launch(target, config, state, n_steps, n_frames, thinning,
+                      generator, unif3, n01)
+        return out if return_iters else out[:2]
+
+    return drive

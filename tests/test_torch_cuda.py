@@ -4,6 +4,8 @@ each test needs a CUDA device and nvcc, and skips where
 torch.cuda.is_available() is false.  Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -q -n 0``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -12,6 +14,7 @@ torch.set_num_threads(1)
 
 import adaptive_mcmc_tpu_torch as amt  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2  # noqa: E402
+from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +99,70 @@ def test_main_path_goes_through_the_kernels(cuda, fused):
     assert samples.is_cuda and samples.shape == (100 * 256, t.dim)
     assert bool(torch.isfinite(samples).all())
     assert (k2.launches if fused else k1.launches) > 0
+
+
+def _asss_state(t, C, device, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.rand((C, t.dim), generator=g, device=device) * 4 - 2
+    return g, (x, t.potential_fn(x), x.clone(),
+               torch.eye(t.dim, device=device).expand(C, t.dim, t.dim)
+               .contiguous(), 0, torch.zeros(C, device=device))
+
+
+def test_k3_matches_plain_version_injected(cuda):
+    t = amt.eight_schools_noncentered()
+    cfg = amt.ASSSConfig(num_warmup=8)
+    C, d, rows = 256, t.dim, 512
+    g, state = _asss_state(t, C, cuda, 0)
+    unif3 = torch.rand((rows, 3, C), generator=g, device=cuda) \
+        .clamp_(1e-6, 1 - 1e-6)
+    n01 = torch.randn((rows, d + 1, C), generator=g, device=cuda)
+    before = k3.launches
+    got, gf, gi = k3.build_fused_asss(t, cfg)(
+        state, 16, 4, 4, unif3=unif3, n01=n01, return_iters=True)
+    assert k3.launches == before + 1
+    want, wf, wi = k3.fused_asss_reference(
+        t, cfg, state, 16, 4, 4, unif3=unif3, n01=n01, return_iters=True)
+    assert int(gi.max()) <= rows
+    assert torch.equal(gi, wi)
+    for k in (0, 1, 2, 3, 5):
+        torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-6)
+    for k in wf:
+        torch.testing.assert_close(gf[k], wf[k], rtol=2e-5, atol=2e-6)
+
+
+def test_k3_bailout_stays_put(cuda):
+    t = amt.eight_schools_noncentered()
+    g, state = _asss_state(t, 128, cuda, 1)
+    out, _, iters = k3.build_fused_asss(
+        t, amt.ASSSConfig(max_shrinkage_iters=0))(
+            state, 5, generator=g, return_iters=True)
+    assert torch.equal(out[0], state[0]) and int(out[4]) == 5
+    assert bool((iters == 6).all())
+
+
+def test_asss_main_path_goes_through_k3(cuda):
+    t = amt.eight_schools_noncentered()
+    k3.launches = 0
+    mcmc = amt.MCMC(amt.asss(t, amt.ASSSConfig(fused=True)),
+                    num_warmup=200, num_samples=400, thinning=4,
+                    n_chains=256)
+    mcmc.run(torch.Generator(cuda).manual_seed(1))
+    samples = mcmc.get_samples(flat_unconstrained=True)
+    assert samples.is_cuda and samples.shape == (100 * 256, t.dim)
+    assert bool(torch.isfinite(samples).all())
+    assert k3.launches > 0
+
+
+@pytest.mark.parametrize("lockstep", [False, True])
+def test_asss_drivers_go_through_k1(cuda, lockstep):
+    kernel = amt.asss(amt.eight_schools_noncentered(),
+                      amt.ASSSConfig(num_warmup=20))
+    if lockstep:
+        kernel = dataclasses.replace(kernel, step_n=None, collect_n=None)
+    k1.launches = 0
+    samples, _, last = amt.run_mcmc(kernel, torch.Generator(cuda)
+                                    .manual_seed(2), 20, 40, thinning=2,
+                                    n_chains=64)
+    assert samples.is_cuda and bool(torch.isfinite(samples).all())
+    assert int(last.i) == 60 and k1.launches > 0

@@ -45,6 +45,8 @@ TARGETS = {
                                   tm.eight_schools_noncentered, ()),
     "std_normal_5": (jm.std_normal, tm.std_normal, (5,)),
     "mvn_4": (jm.mvn, tm.mvn, _mvn_args()),
+    "gaussian_mixture_1d": (jm.gaussian_mixture_1d, tm.gaussian_mixture_1d,
+                            ()),
 }
 
 
