@@ -3,10 +3,12 @@
 The JAX package ``adaptive_mcmc_tpu`` is the reference; this package runs
 the same samplers in PyTorch on an NVIDIA H100, with every TPU kernel of the
 path rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``).  It holds the
-main path so far: batched adaptive ARWMH and ASSS on eight-schools
-noncentered, driven by ``run_mcmc`` / ``MCMC``, with kernel K1 (the rank-1
-Cholesky update), kernel K2 (the fused ARWMH sweep) and kernel K3 (the
-fused ASSS sweep, ``ASSSConfig(fused=True)``).  It never imports JAX.
+samplers so far: batched adaptive ARWMH and ASSS on the PosteriorDB
+posteriors (eight schools noncentered and centered, kidiq, diamonds),
+driven by ``run_mcmc`` / ``MCMC``, with kernel K1 (the rank-1 Cholesky
+update), kernel K2 (the fused ARWMH sweep, d <= 16) and kernel K3 (the fused
+ASSS sweep, ``ASSSConfig(fused=True)``, diamonds at d = 26 included).  It
+never imports JAX.
 
     import torch
     import adaptive_mcmc_tpu_torch as amt
@@ -25,8 +27,11 @@ import torch
 from adaptive_mcmc_tpu_torch import kernels  # noqa: F401  (registers)
 from adaptive_mcmc_tpu_torch.models import (  # noqa: F401
     Target,
+    diamonds,
+    eight_schools_centered,
     eight_schools_noncentered,
     gaussian_mixture_1d,
+    kidiq,
     mvn,
     std_normal,
 )

@@ -1,24 +1,29 @@
-// Kernel K2: the fused ARWMH sweep on Hopper (sm_90a), eight-schools
-// noncentered target.
+// Kernel K2: the fused ARWMH sweep on Hopper (sm_90a), for the targets
+// with a device potential at d <= 16: eight schools noncentered and
+// centered (d = 10) and kidiq (d = 4).
 //
 // Replaces the Pallas TPU kernel built by build_fused_arwmh in
-// adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py (_make_kernel / _one_step).
-// Plain PyTorch version: fused_arwmh_reference in
+// adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py (_make_kernel / _one_step),
+// which traces a target's potential into the kernel; here the potential is
+// a policy P of csrc/common.cuh and the kernel a template on it.  Plain
+// PyTorch version: fused_arwmh_reference in
 // adaptive_mcmc_tpu_torch/ops/cuda/arwmh_fused.py, whose operation order
 // this kernel follows.
 //
 // One launch runs n_steps whole ARWMH transitions.  One thread owns one
 // chain and keeps its whole state in registers for the launch: x and loc
 // (d each), the lower half of L (d(d+1)/2 = 55 floats at d = 10), pe, the
-// running mean acceptance and log step size.  d = J + 2 is a template
-// parameter, so every loop over d unrolls and all indexing is static.  Per
-// step:
+// running mean acceptance and log step size.  d = P::D is a template
+// parameter, so every loop over d unrolls and all indexing is static.  At
+// d = 26 (diamonds) the factor and the guard's second copy (2 x 351 floats)
+// do not fit in registers; K2 has no instantiation there (the JAX package
+// keeps d > 16 off its fused ARWMH kernel too).  Per step:
 //   1. draws: Box-Muller normals over u1 in (0, 1] and 24-bit uniforms from
 //      a counter-based Philox4x32-10 keyed by (seed, chain) with the step
 //      index as counter, or injected noise (S, d, C) / unif (S, C) (the
 //      generator and the potential live in common.cuh, shared with K3);
 //   2. proposal x' = x + (L e^lam + eps I) z, unrolled over columns;
-//   3. the eight-schools potential, in the operation order of
+//   3. the target's potential, in the operation order of
 //      models/targets.py, NaN -> +inf;
 //   4. MH accept with alpha = min(1, exp(U - U')), NaN propagating;
 //   5. adaptation clock (gamma = n^-r as exp(-r log n), clock restarted
@@ -55,8 +60,8 @@ struct Params {
   float* L;      // (D, D, C)
   float* lam;    // (C,)
   float* as;     // (C,)
-  const float* y;      // (J,)
-  const float* sigma;  // (J,)
+  const float* data;   // the target's kernel_data (n_data floats)
+  int n_data;
   const float* noise;  // (S, D, C) or null
   const float* unif;   // (S, C) or null
   float* fx;           // (F, D, C) or null
@@ -74,23 +79,19 @@ struct Params {
   unsigned long long seed;
 };
 
-template <int J>
+template <class P>
 __global__ void __launch_bounds__(kThreads)
     arwmh_fused_kernel(const Params p) {
-  constexpr int D = J + 2;
+  constexpr int D = P::D;
+  static_assert(D <= 16, "K2 keeps the factor in registers: d <= 16");
   constexpr int NL = D * (D + 1) / 2;
   constexpr int kNormalBlocks = (D + 3) / 4;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= p.C) return;
   const size_t C = static_cast<size_t>(p.C);
 
-  float yv[J], sg[J], lsg[J];
-#pragma unroll
-  for (int k = 0; k < J; ++k) {
-    yv[k] = p.y[k];
-    sg[k] = p.sigma[k];
-    lsg[k] = logf(sg[k]);
-  }
+  typename P::Data data;
+  P::load(p.data, p.n_data, &data);
 
   float x[D], loc[D], L[NL];
 #pragma unroll
@@ -136,7 +137,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // 3.-4. potential and MH accept
-    float pe_prop = amt::eight_schools_potential<J>(xp, yv, sg, lsg);
+    float pe_prop = P::potential(xp, data);
     if (isnan(pe_prop)) pe_prop = CUDART_INF_F;
     const float e = expf(pe - pe_prop);
     const float ap = isnan(e) ? e : fminf(e, 1.0f);
@@ -234,34 +235,50 @@ __global__ void __launch_bounds__(kThreads)
   p.as[c] = as_chg;
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for an unsupported J or bad arguments.
-extern "C" int arwmh_fused_eight_schools(
-    float* x, float* pe, float* map, float* loc, float* L, float* lam,
-    float* as_change, const float* y, const float* sigma, const float* noise,
-    const float* unif, float* fx, float* fpe, float* fas, int C, int J,
-    int n_steps, int n_frames, int thinning, int i0, int num_warmup,
-    float lr_decay, float target_ap, float eps, unsigned long long seed,
-    void* stream_ptr) {
-  if (C < 0 || n_steps < 0 || thinning < 1 || n_frames < 0 ||
+template <class P>
+int launch(float* x, float* pe, float* map, float* loc, float* L, float* lam,
+           float* as_change, const float* data, int n_data,
+           const float* noise, const float* unif, float* fx, float* fpe,
+           float* fas, int C, int D, int n_steps, int n_frames, int thinning,
+           int i0, int num_warmup, float lr_decay, float target_ap, float eps,
+           unsigned long long seed, void* stream_ptr) {
+  if (D != P::D || !P::data_ok(n_data) || data == nullptr || C < 0 ||
+      n_steps < 0 || thinning < 1 || n_frames < 0 ||
       (n_frames > 0 && (fx == nullptr || fpe == nullptr || fas == nullptr)) ||
       ((noise == nullptr) != (unif == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0 || n_steps == 0) return static_cast<int>(cudaGetLastError());
-  const Params p{x,        pe,        map,      loc,  L,     lam,      as_change,
-                 y,        sigma,     noise,    unif, fx,    fpe,      fas,
-                 C,        n_steps,   n_frames, thinning, i0, num_warmup,
-                 lr_decay, target_ap, eps,      seed};
+  const Params p{x,        pe,        map,      loc,      L,     lam,
+                 as_change, data,     n_data,   noise,    unif,  fx,
+                 fpe,      fas,       C,        n_steps,  n_frames,
+                 thinning, i0,        num_warmup, lr_decay, target_ap,
+                 eps,      seed};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int blocks = (C + kThreads - 1) / kThreads;
-  switch (J) {
-    case 8:
-      arwmh_fused_kernel<8><<<blocks, kThreads, 0, stream>>>(p);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  arwmh_fused_kernel<P><<<blocks, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// One entry point per device potential, arwmh_fused_<tag> (the tag of
+// Target.device_potential).  Each returns cudaGetLastError() after the
+// launch (0 on success), or cudaErrorInvalidValue for a D or data length
+// that is not the potential's, or bad arguments.
+#define AMT_ARWMH_FUSED_ENTRY(TAG, POLICY)                                    \
+  extern "C" int arwmh_fused_##TAG(                                           \
+      float* x, float* pe, float* map, float* loc, float* L, float* lam,      \
+      float* as_change, const float* data, int n_data, const float* noise,    \
+      const float* unif, float* fx, float* fpe, float* fas, int C, int D,     \
+      int n_steps, int n_frames, int thinning, int i0, int num_warmup,        \
+      float lr_decay, float target_ap, float eps, unsigned long long seed,    \
+      void* stream_ptr) {                                                     \
+    return launch<POLICY>(x, pe, map, loc, L, lam, as_change, data, n_data,   \
+                          noise, unif, fx, fpe, fas, C, D, n_steps, n_frames, \
+                          thinning, i0, num_warmup, lr_decay, target_ap, eps, \
+                          seed, stream_ptr);                                  \
+  }
+
+AMT_ARWMH_FUSED_ENTRY(eight_schools_noncentered, amt::EightSchoolsNoncentered)
+AMT_ARWMH_FUSED_ENTRY(eight_schools_centered, amt::EightSchoolsCentered)
+AMT_ARWMH_FUSED_ENTRY(kidiq, amt::Kidiq)

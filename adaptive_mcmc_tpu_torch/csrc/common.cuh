@@ -1,7 +1,17 @@
 // Device helpers shared by the fused sweeps K2 (arwmh_fused.cu) and K3
 // (asss_fused.cu): the counter-based Philox4x32-10 generator, its uniform
-// and Box-Muller normal transforms, and the eight-schools noncentered
-// potential.  One copy, so that both kernels draw and round alike.
+// and Box-Muller normal transforms, and the target potentials.  One copy,
+// so that both kernels draw and round alike.
+//
+// A potential is a policy struct P: its dimension P::D, the float count of
+// its flat data P::data_ok(n_data), the per-thread view of that data
+// P::Data filled by P::load(data, n_data, &view), and
+// P::potential(x, view), the negative log density at x[D].  The data is the
+// target's data["kernel_data"] (models/targets.py), one array that every
+// thread reads at the same addresses.  Each potential follows its plain
+// PyTorch version's operation order one rounding at a time, built without
+// FMA contraction; a Python constant is folded here in double in the order
+// Python folds it, then rounded to float as PyTorch rounds a Python scalar.
 
 #pragma once
 
@@ -19,6 +29,21 @@ constexpr float kLog5 = 1.6094379124341003f;
 constexpr float kHalfCauchy5 =
     static_cast<float>(0.6931471805599453 - 1.1447298858494002 -
                        1.6094379124341003);
+// The doubles Python folds (each the repr of its Python value; the CPU tests
+// hold every `constexpr double` here against its expression).
+constexpr double kLog2 = 0.6931471805599453;            // math.log(2.0)
+constexpr double kLogPi = 1.1447298858494002;           // math.log(math.pi)
+constexpr double kLog2p5 = 0.9162907318741551;          // math.log(2.5)
+constexpr double kLog3 = 1.0986122886681098;            // math.log(3.0)
+constexpr double kLog10 = 2.302585092994046;            // math.log(10.0)
+constexpr double kLgamma2 = 0.0;                        // math.lgamma(2.0)
+constexpr double kLgamma1p5 = -0.12078223763524543;     // math.lgamma(1.5)
+// half-Cauchy(2.5): log 2 - log pi - log 2.5
+constexpr float kHalfCauchy2p5 = static_cast<float>(kLog2 - kLogPi - kLog2p5);
+// Student-t(3, loc, 10): lgamma(2) - lgamma(1.5) - log(3) / 2 - log(pi) / 2
+// - log(10)
+constexpr float kStudentT3Scale10 = static_cast<float>(
+    kLgamma2 - kLgamma1p5 - 0.5 * kLog3 - 0.5 * kLogPi - kLog10);
 
 // ---- Philox4x32-10 (Salmon et al. 2011) ---------------------------------
 __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
@@ -111,6 +136,201 @@ __device__ __forceinline__ float eight_schools_potential(
   lp = lp + s2;
   return -lp;
 }
+
+// torch.logaddexp as ATen computes it on the card for float: the larger
+// argument plus log1p(exp(-|a - b|)), and a itself for equal infinities.
+__device__ __forceinline__ float logaddexp(float a, float b) {
+  if (isinf(a) && a == b) return a;
+  return fmaxf(a, b) + log1pf(expf(-fabsf(a - b)));
+}
+
+// ---- potential policies ----------------------------------------------------
+
+// eight schools, J = 8: y and sigma in registers, log sigma once per thread
+struct EightSchoolsData {
+  static constexpr int J = 8;
+  float y[J], sigma[J], log_sigma[J];
+};
+
+__device__ __forceinline__ void load_eight_schools(const float* data,
+                                                   EightSchoolsData* v) {
+#pragma unroll
+  for (int k = 0; k < EightSchoolsData::J; ++k) {
+    v->y[k] = data[k];
+    v->sigma[k] = data[EightSchoolsData::J + k];
+    v->log_sigma[k] = logf(v->sigma[k]);
+  }
+}
+
+// eight schools noncentered, [mu, log tau, theta_base(8)]; data [y, sigma]
+struct EightSchoolsNoncentered {
+  static constexpr int D = EightSchoolsData::J + 2;
+  using Data = EightSchoolsData;
+  static bool data_ok(int n) { return n == 2 * Data::J; }
+  __device__ static void load(const float* data, int, Data* v) {
+    load_eight_schools(data, v);
+  }
+  __device__ static float potential(const float (&x)[D], const Data& v) {
+    return eight_schools_potential<Data::J>(x, v.y, v.sigma, v.log_sigma);
+  }
+};
+
+// eight schools centered, [mu, log tau, theta(8)]; data [y, sigma].  Same
+// order as models/targets.py eight_schools_centered:
+//   lp  = normal_logpdf(mu, 0, 5)
+//   lp += half_cauchy_logpdf(tau, 5) + log_tau
+//   lp += sum normal_logpdf(theta, mu, tau)
+//   lp += sum normal_logpdf(y, theta, sigma)
+struct EightSchoolsCentered {
+  static constexpr int D = EightSchoolsData::J + 2;
+  using Data = EightSchoolsData;
+  static bool data_ok(int n) { return n == 2 * Data::J; }
+  __device__ static void load(const float* data, int, Data* v) {
+    load_eight_schools(data, v);
+  }
+  __device__ static float potential(const float (&x)[D], const Data& v) {
+    constexpr int J = Data::J;
+    const float mu = x[0], log_tau = x[1];
+    const float tau = expf(log_tau);
+    const float zm = (mu - 0.0f) * (1.0f / 5.0f);
+    float lp = -0.5f * (zm * zm + kLog2Pi) - kLog5;
+    const float zc = tau * (1.0f / 5.0f);
+    lp = lp + ((kHalfCauchy5 - log1pf(zc * zc)) + log_tau);
+    const float log_scale = logf(tau);
+    float s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < J; ++k) {
+      const float z = (x[2 + k] - mu) / tau;
+      const float term = -0.5f * (z * z + kLog2Pi) - log_scale;
+      s1 = k == 0 ? term : s1 + term;
+    }
+    lp = lp + s1;
+#pragma unroll
+    for (int k = 0; k < J; ++k) {
+      const float zy = (v.y[k] - x[2 + k]) / v.sigma[k];
+      const float term = -0.5f * (zy * zy + kLog2Pi) - v.log_sigma[k];
+      s2 = k == 0 ? term : s2 + term;
+    }
+    lp = lp + s2;
+    return -lp;
+  }
+};
+
+// kidiq, [beta(3), log sigma]; data [kid_score(N), mom_hs(N), mom_iq(N)],
+// read through the pointer (3 N floats at N = 434).  The N-term sum runs as
+// kKidiqLanes running sums, term n into sum n mod kKidiqLanes, then those
+// left to right: models/base.py sum_strided with KIDIQ_LANES.  Order of
+// models/targets.py kidiq:
+//   lp  = half_cauchy_logpdf(sigma, 2.5) + log_sigma
+//   mu  = (beta0 + beta1 mom_hs) + beta2 mom_iq
+//   lp += sum normal_logpdf(kid_score, mu, sigma)
+constexpr int kKidiqLanes = 14;
+struct Kidiq {
+  static constexpr int D = 4;
+  struct Data {
+    const float* ks;
+    const float* hs;
+    const float* iq;
+    int n;
+  };
+  static bool data_ok(int n) { return n > 0 && n % 3 == 0; }
+  __device__ static void load(const float* data, int n_data, Data* v) {
+    v->n = n_data / 3;
+    v->ks = data;
+    v->hs = data + v->n;
+    v->iq = data + 2 * v->n;
+  }
+  __device__ static float potential(const float (&x)[D], const Data& v) {
+    const float b0 = x[0], b1 = x[1], b2 = x[2], log_sigma = x[3];
+    const float sigma = expf(log_sigma);
+    const float zc = sigma * (1.0f / 2.5f);
+    const float lp = (kHalfCauchy2p5 - log1pf(zc * zc)) + log_sigma;
+    const float log_scale = logf(sigma);
+    float acc[kKidiqLanes];
+#pragma unroll
+    for (int j = 0; j < kKidiqLanes; ++j) acc[j] = 0.0f;
+    for (int n0 = 0; n0 < v.n; n0 += kKidiqLanes) {
+#pragma unroll
+      for (int j = 0; j < kKidiqLanes; ++j) {
+        const int n = n0 + j;
+        if (n < v.n) {
+          const float mu = (b0 + b1 * __ldg(v.hs + n)) + b2 * __ldg(v.iq + n);
+          const float z = (__ldg(v.ks + n) - mu) / sigma;
+          acc[j] = acc[j] + (-0.5f * (z * z + kLog2Pi) - log_scale);
+        }
+      }
+    }
+    float s = acc[0];
+#pragma unroll
+    for (int j = 1; j < kKidiqLanes; ++j) s = s + acc[j];
+    return -(lp + s);
+  }
+};
+
+// diamonds in its sufficient-statistic form, [Intercept, b(24), log sigma];
+// data [Lᵀ (24 x 24, row-major, upper triangular), b̂(24), SSE_min, N, Ȳ]
+// read through the pointer.  Order of models/targets.py diamonds:
+//   lp  = student_t_logpdf(a, 3, 8, 10)
+//   lp += sum normal_logpdf(b)
+//   lp += folded_student_t_logpdf(sigma, 3, 0, 10) + log_sigma
+//   u_i = sum_{j >= i} Lᵀ_ij (b_j - b̂_j)   (the plain version also adds
+//         the exact zeros of j < i first)
+//   SSE = (SSE_min + (N da) da) + sum u_i², da = a - Ȳ
+//   lp += (-N / 2)(log 2 pi + 2 log_sigma) - (SSE / 2) / sigma²
+struct DiamondsSuffStats {
+  static constexpr int Kc = 24;
+  static constexpr int D = Kc + 2;
+  struct Data {
+    const float* lt;
+    const float* b_hat;
+    float sse_min, n, y_bar;
+  };
+  static bool data_ok(int n) { return n == Kc * Kc + Kc + 3; }
+  __device__ static void load(const float* data, int, Data* v) {
+    v->lt = data;
+    v->b_hat = data + Kc * Kc;
+    v->sse_min = data[Kc * Kc + Kc];
+    v->n = data[Kc * Kc + Kc + 1];
+    v->y_bar = data[Kc * Kc + Kc + 2];
+  }
+  // Student-t(3, loc, 10) log density at x as models/base.py writes it
+  __device__ static float student_t3_10(float x, float loc) {
+    const float z = (x - loc) * (1.0f / 10.0f);
+    return kStudentT3Scale10 - 2.0f * log1pf((z * z) * (1.0f / 3.0f));
+  }
+  __device__ static float potential(const float (&x)[D], const Data& v) {
+    const float a = x[0], log_sigma = x[D - 1];
+    const float sigma = expf(log_sigma);
+    float lp = student_t3_10(a, 8.0f);
+    float sb = 0.0f;
+#pragma unroll
+    for (int k = 0; k < Kc; ++k) {
+      const float z = (x[1 + k] - 0.0f) * 1.0f;
+      const float term = -0.5f * (z * z + kLog2Pi) - 0.0f;
+      sb = k == 0 ? term : sb + term;
+    }
+    lp = lp + sb;
+    const float folded =
+        logaddexp(student_t3_10(sigma, 0.0f), student_t3_10(-sigma, 0.0f));
+    lp = lp + (folded + log_sigma);
+    float r[Kc];
+#pragma unroll
+    for (int j = 0; j < Kc; ++j) r[j] = x[1 + j] - __ldg(v.b_hat + j);
+    float uu = 0.0f;
+#pragma unroll
+    for (int i = 0; i < Kc; ++i) {
+      float u = __ldg(v.lt + i * Kc + i) * r[i];
+#pragma unroll
+      for (int j = i + 1; j < Kc; ++j) u = u + __ldg(v.lt + i * Kc + j) * r[j];
+      uu = i == 0 ? u * u : uu + u * u;
+    }
+    const float da = a - v.y_bar;
+    const float sse = (v.sse_min + (v.n * da) * da) + uu;
+    lp = lp + ((-0.5f * v.n) * (kLog2Pi + 2.0f * log_sigma) -
+               (0.5f * sse) / (sigma * sigma));
+    return -lp;
+  }
+};
 
 // packed lower-triangular index (i >= j), row-major
 __host__ __device__ constexpr int tri(int i, int j) {

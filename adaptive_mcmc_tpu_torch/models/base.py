@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Mapping, Sequence, Tuple
+from typing import Any, Callable, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +36,11 @@ class Target:
 
     ``potential_fn``: ``(C, dim) -> (C,)`` negative log-density including
     the log-Jacobian of the unconstraining transforms.  ``data`` holds the
-    arrays the potential was built from, with a copy per device (the fused
-    CUDA driver passes them to its kernel).
+    arrays the potential was built from, with a copy per device.
+    ``device_potential`` names the ``__device__`` potential of
+    ``csrc/common.cuh`` that computes exactly ``potential_fn`` (same
+    operations, same order), or is None: only a tagged target runs in the
+    fused CUDA sweeps, which read its ``data["kernel_data"]``.
     """
 
     name: str
@@ -45,6 +48,7 @@ class Target:
     potential_fn: Callable[[Tensor], Tensor]
     sites: Tuple[SiteSpec, ...] = ()
     data: Any = None
+    device_potential: Optional[str] = None
 
     def log_prob(self, x: Tensor) -> Tensor:
         return -self.potential_fn(x)
@@ -131,6 +135,19 @@ def sum_in_order(a: Tensor, dim: int = -1) -> Tensor:
     for k in range(1, a.shape[dim]):
         s = s + a.select(dim, k)
     return s
+
+
+def sum_strided(a: Tensor, lanes: int) -> Tensor:
+    """Sum over the last axis as ``lanes`` running sums, entry n going to
+    sum n mod ``lanes`` (each summed left to right from 0), then those sums
+    left to right: the order of the fused CUDA kernels' long data sums
+    (``csrc/common.cuh``), in ``lanes`` + N / ``lanes`` slice additions
+    rather than N."""
+    pad = (-a.shape[-1]) % lanes
+    if pad:
+        a = torch.nn.functional.pad(a, (0, pad))
+    blocks = a.reshape(a.shape[:-1] + (-1, lanes))
+    return sum_in_order(sum_in_order(blocks, -2), -1)
 
 
 def normal_logpdf(x, loc=0.0, scale=1.0):

@@ -7,16 +7,29 @@ wrapper runs for CPU tensors, and a launch counter:
 * ``asss_fused`` — K3, the fused ASSS sweep.
 """
 
-# targets with a __device__ potential in csrc/common.cuh, the only ones the
-# fused sweeps K2 and K3 can run on the card
-DEVICE_POTENTIALS = ("eight_schools_noncentered",)
+# The device potentials (csrc/common.cuh) each fused sweep is built for, by
+# the tag a target builder sets (Target.device_potential) when its
+# potential_fn is exactly that device function.  A target name alone does
+# not say which potential is computed: diamonds(suff_stats=False) has the
+# name of the sufficient-statistic form but no device twin.  K2 keeps its
+# factor in registers, so it takes d <= 16 only (no diamonds, d = 26).
+DEVICE_POTENTIALS = {
+    "fused ARWMH": ("eight_schools_noncentered", "eight_schools_centered",
+                    "kidiq"),
+    "fused ASSS": ("eight_schools_noncentered", "eight_schools_centered",
+                   "kidiq", "diamonds_ss"),
+}
 
 
-def check_device_potential(target, kernel: str) -> None:
-    """Raise ``NotImplementedError`` if ``kernel`` has no device potential
-    for ``target``."""
-    if target.name not in DEVICE_POTENTIALS:
+def check_device_potential(target, kernel: str) -> str:
+    """The device-potential tag under which ``kernel`` ("fused ARWMH" or
+    "fused ASSS") runs ``target``; raises ``NotImplementedError`` if the
+    kernel has no device twin of ``target.potential_fn``."""
+    tag = getattr(target, "device_potential", None)
+    if tag not in DEVICE_POTENTIALS[kernel]:
         raise NotImplementedError(
-            f"the {kernel} kernel has a device potential for "
-            f"{DEVICE_POTENTIALS} only, not {target.name!r}"
+            f"the {kernel} kernel has device potentials "
+            f"{DEVICE_POTENTIALS[kernel]} only; target {target.name!r} has "
+            f"device potential {tag!r}"
         )
+    return tag

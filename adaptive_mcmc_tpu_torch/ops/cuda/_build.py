@@ -7,7 +7,9 @@ and the compiler flags, so an edited source or header rebuilds and an
 unchanged one is loaded as built.  :func:`build` compiles several libraries
 at once, one nvcc process each.  Every pointer and the stream cross as
 ``ctypes.c_void_p``; every launch function returns ``cudaGetLastError()``,
-which :func:`check` turns into an exception.
+which :func:`check` turns into an exception.  ptxas's report of each
+kernel (registers, stack frame, spills) is kept beside the library as
+``lib<name>-<hash>.ptxas.txt``; :func:`ptxas_summary` condenses it.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, IEEE division and square root, and no
 FMA contraction (``-fmad=false``), so that the kernels round like the plain
@@ -35,9 +37,13 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-    "-prec-div=true", "-prec-sqrt=true",
+    "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v",
 )
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 _LIBS: dict = {}
 _FUNCS: dict = {}
@@ -98,6 +104,7 @@ def _compile(nvcc: str, name: str, lib: Path):
     if proc.returncode != 0:
         return (f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
                 f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return None
 
@@ -140,7 +147,38 @@ def function(name: str, symbol: str, argtypes: list):
     return _FUNCS[key]
 
 
+def ptr(t):
+    """A tensor's device address for a ``ctypes.c_void_p`` argument, or
+    None (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def ptxas_summary(name: str) -> list:
+    """One line per kernel of library ``name`` from ptxas's report of its
+    build (the mangled name, registers, stack frame and spill bytes); empty
+    if the library was not built with the report."""
+    report = _lib_path(name).with_suffix(".ptxas.txt")
+    return parse_ptxas(report.read_text()) if report.exists() else []
+
+
+def parse_ptxas(text: str) -> list:
+    """The per-kernel lines of :func:`ptxas_summary` from ``-Xptxas -v``
+    output."""
+    out, entry, frame = [], None, None
+    for line in text.splitlines():
+        if m := _PTXAS_ENTRY.search(line):
+            entry, frame = m.group(1), None
+        elif (m := _PTXAS_FRAME.search(line)) and entry:
+            frame = m.groups()
+        elif (m := _PTXAS_REGS.search(line)) and entry and frame:
+            out.append(f"{entry}: {m.group(1)} registers, {frame[0]}-byte "
+                       f"stack frame, {frame[1]} bytes spill stores, "
+                       f"{frame[2]} bytes spill loads")
+            entry = None
+    return out

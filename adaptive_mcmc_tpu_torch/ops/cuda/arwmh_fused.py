@@ -19,9 +19,12 @@ deterministic.  Otherwise the kernel draws from a counter-based
 Philox4x32-10 seeded from ``generator``, and the plain version draws from
 ``generator`` directly: the two agree in distribution, not bitwise.
 
-Dispatch depends on the state's device alone: CPU tensors run
-:func:`fused_arwmh_reference`, CUDA tensors launch the kernel or raise.
-``launches`` counts kernel launches.
+The kernel has one entry point ``arwmh_fused_<tag>`` per device potential
+it is built for (eight schools noncentered and centered, kidiq: d <= 16);
+``build_fused_arwmh`` raises ``NotImplementedError`` for any other target,
+diamonds (d = 26) included.  Dispatch depends on the state's device alone:
+CPU tensors run :func:`fused_arwmh_reference`, CUDA tensors launch the
+kernel or raise.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -107,12 +110,38 @@ def _steps_cl(target, config, st: dict, i0: int, n_steps: int,
     st.update(x=x, pe=pe, map=map_, loc=loc, L=L, lam=lam, **{"as": as_chg})
 
 
+# argument types of arwmh_fused_<tag>: 8 pointers, n_data, 5 pointers, 7
+# ints, 3 floats, the seed and the stream
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
+             + [ctypes.c_uint64, ctypes.c_void_p])
+
+
+def kernel_args(config, st: dict, kernel_data: Tensor, i0: int,
+                n_steps: int, n_frames: int, thinning: int, noise, unif,
+                frames: dict, seed: int) -> list:
+    """The arguments of ``arwmh_fused_<tag>`` but the stream, for the
+    chains-last state ``st`` of :func:`_drive`."""
+    d, C = st["x"].shape
+    ptr = _build.ptr
+    return [
+        ptr(st["x"]), ptr(st["pe"]), ptr(st["map"]), ptr(st["loc"]),
+        ptr(st["L"]), ptr(st["lam"]), ptr(st["as"]), ptr(kernel_data),
+        kernel_data.numel(), ptr(noise), ptr(unif), ptr(frames.get("x")),
+        ptr(frames.get("pe")), ptr(frames.get("as")),
+        C, d, n_steps, n_frames, thinning, i0, int(config.num_warmup),
+        float(config.lr_decay), float(config.target_accept_prob),
+        float(config.eps), seed,
+    ]
+
+
 def _launch_cl(target, config, st: dict, i0: int, n_steps: int,
                n_frames: int, thinning: int, generator, noise, unif,
                frames: dict) -> None:
     """Launch K2 on chains-last CUDA tensors; updates ``st`` in place."""
     global launches
-    d, C = st["x"].shape
+    tag = check_device_potential(target, "fused ARWMH")
+    C = st["x"].shape[1]
     dev = st["x"].device
     if n_steps == 0 or C == 0:
         return
@@ -123,33 +152,19 @@ def _launch_cl(target, config, st: dict, i0: int, n_steps: int,
                                  device=generator.device).item())
     else:
         seed = 0
-    consts = target.data.on(dev)
+    data = target.data.on(dev)["kernel_data"]
     for t in list(st.values()) + [noise, unif, *frames.values()]:
         if t is not None and (not t.is_cuda or t.device != dev
                               or t.dtype != torch.float32
                               or not t.is_contiguous()):
             raise ValueError("K2 takes contiguous float32 tensors on one "
                              "CUDA device")
-    fn = _build.function(
-        "arwmh_fused", "arwmh_fused_eight_schools",
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_float] * 3
-        + [ctypes.c_uint64, ctypes.c_void_p],
-    )
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        ptr(st["x"]), ptr(st["pe"]), ptr(st["map"]), ptr(st["loc"]),
-        ptr(st["L"]), ptr(st["lam"]), ptr(st["as"]),
-        ptr(consts["y"]), ptr(consts["sigma"]), ptr(noise), ptr(unif),
-        ptr(frames.get("x")), ptr(frames.get("pe")), ptr(frames.get("as")),
-        C, consts["y"].shape[0], n_steps, n_frames, thinning, i0,
-        int(config.num_warmup), float(config.lr_decay),
-        float(config.target_accept_prob), float(config.eps), seed, stream,
-    )
-    _build.check(err, "arwmh_fused_eight_schools")
+    symbol = f"arwmh_fused_{tag}"
+    fn = _build.function("arwmh_fused", symbol, _ARGTYPES)
+    err = fn(*kernel_args(config, st, data, i0, n_steps, n_frames, thinning,
+                          noise, unif, frames, seed),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, symbol)
     launches += 1
 
 

@@ -5,7 +5,10 @@ Replaces the Pallas kernel built by ``build_fused_asss`` in
 every chain runs its own slice-sampling state machine for ``n_steps``
 transitions in one launch, and thinned frames stream out as each chain
 lands them.  The CUDA source is ``csrc/asss_fused.cu`` (one thread per
-chain, state in registers, eight-schools noncentered only).
+chain; the factor in registers up to d = 16, in shared memory at d = 26),
+one entry point ``asss_fused_<tag>`` per device potential: eight schools
+noncentered and centered, kidiq, and diamonds in its sufficient-statistic
+form (``Target.device_potential``).
 
 ``build_fused_asss(target, config)`` returns ``drive(state, n_steps,
 n_frames=0, thinning=1, generator=None, unif3=None, n01=None,
@@ -51,8 +54,10 @@ iteration counts tell how many).
 
 Dispatch depends on the state's device alone: CPU tensors run
 :func:`fused_asss_reference`, CUDA tensors launch the kernel or raise
-(``NotImplementedError`` for a target without a device potential).
-``launches`` counts kernel launches.
+(``NotImplementedError`` for a target without a device potential, before
+anything runs).  ``launches`` counts kernel launches.
+:func:`device_potential` evaluates a target's device potential alone on
+the card, to hold it against ``potential_fn``.
 """
 
 from __future__ import annotations
@@ -295,11 +300,37 @@ def _finish(st, frames, i0: int, n_steps: int, iters: Tensor):
     return new_state, out, iters
 
 
+# argument types of asss_fused_<tag>: 7 pointers, n_data, 5 pointers, 10
+# ints, 3 floats, the seed and the stream
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
+             + [ctypes.c_uint64, ctypes.c_void_p])
+
+
+def kernel_args(config, st: dict, iters: Tensor, kernel_data: Tensor,
+                unif3, n01, frames: dict, n_steps: int, n_frames: int,
+                thinning: int, i0: int, seed: int) -> list:
+    """The arguments of ``asss_fused_<tag>`` but the stream, for the
+    chains-last state ``st`` of :func:`_prepare`."""
+    d, C = st["x"].shape
+    ptr = _build.ptr
+    return [
+        ptr(st["x"]), ptr(st["pe"]), ptr(st["loc"]), ptr(st["S"]),
+        ptr(st["as"]), ptr(iters), ptr(kernel_data), kernel_data.numel(),
+        ptr(unif3), ptr(n01), ptr(frames.get("x")), ptr(frames.get("pe")),
+        ptr(frames.get("as")),
+        C, d, 0 if unif3 is None else unif3.shape[0], n_steps, n_frames,
+        thinning, i0, int(config.num_warmup),
+        int(config.max_shrinkage_iters), int(bool(config.adapt)),
+        float(config.lr_decay), float(config.eps), math.sqrt(d), seed,
+    ]
+
+
 def _launch(target, config, state, n_steps: int, n_frames: int,
             thinning: int, generator, unif3, n01):
     """Run K3 on CUDA tensors; same return as :func:`run_machine`."""
     global launches
-    check_device_potential(target, "fused ASSS")
+    tag = check_device_potential(target, "fused ASSS")
     st, frames, i0, inject = _prepare(state, n_steps, n_frames, thinning,
                                       generator, unif3, n01)
     d, C = st["x"].shape
@@ -313,36 +344,42 @@ def _launch(target, config, state, n_steps: int, n_frames: int,
     else:
         seed = int(torch.randint(0, 2 ** 63 - 1, (1,), generator=generator,
                                  device=generator.device).item())
-    consts = target.data.on(dev)
+    data = target.data.on(dev)["kernel_data"]
     for t in list(st.values()) + [unif3, n01, *frames.values()]:
         if t is not None and (not t.is_cuda or t.device != dev
                               or t.dtype != torch.float32
                               or not t.is_contiguous()):
             raise ValueError("K3 takes contiguous float32 tensors on one "
                              "CUDA device")
-    fn = _build.function(
-        "asss_fused", "asss_fused_eight_schools",
-        [ctypes.c_void_p] * 13 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
-        + [ctypes.c_uint64, ctypes.c_void_p],
-    )
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = fn(
-        ptr(st["x"]), ptr(st["pe"]), ptr(st["loc"]), ptr(st["S"]),
-        ptr(st["as"]), ptr(iters), ptr(consts["y"]), ptr(consts["sigma"]),
-        ptr(unif3), ptr(n01), ptr(frames.get("x")), ptr(frames.get("pe")),
-        ptr(frames.get("as")),
-        C, consts["y"].shape[0], unif3.shape[0] if inject else 0, n_steps,
-        n_frames, thinning, i0, int(config.num_warmup),
-        int(config.max_shrinkage_iters), int(bool(config.adapt)),
-        float(config.lr_decay), float(config.eps), math.sqrt(d), seed,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _build.check(err, "asss_fused_eight_schools")
+    symbol = f"asss_fused_{tag}"
+    fn = _build.function("asss_fused", symbol, _ARGTYPES)
+    err = fn(*kernel_args(config, st, iters, data, unif3, n01, frames,
+                          n_steps, n_frames, thinning, i0, seed),
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, symbol)
     launches += 1
     return _finish(st, frames, i0, n_steps, iters)
+
+
+def device_potential(target, x: Tensor) -> Tensor:
+    """The target's device potential (``csrc/common.cuh``) at the rows of
+    a CUDA ``x`` (C, d), without the NaN guard: one launch of
+    ``asss_fused_potential_<tag>``, not counted in ``launches``."""
+    tag = check_device_potential(target, "fused ASSS")
+    if not x.is_cuda or x.dtype != torch.float32:
+        raise ValueError("device_potential takes a float32 CUDA tensor")
+    xt = x.t().contiguous()                                  # (d, C)
+    out = torch.empty(x.shape[0], dtype=torch.float32, device=x.device)
+    data = target.data.on(x.device)["kernel_data"]
+    symbol = f"asss_fused_potential_{tag}"
+    fn = _build.function("asss_fused", symbol,
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p])
+    err = fn(xt.data_ptr(), out.data_ptr(), data.data_ptr(), data.numel(),
+             x.shape[0], x.shape[1],
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, symbol)
+    return out
 
 
 def fused_asss_reference(target, config, state, n_steps: int,

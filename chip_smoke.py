@@ -4,23 +4,30 @@ GPU and check it.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; builds the three kernels from csrc/ at the
-start, one nvcc process each, all at once.  Phases, in order; any failure
-ends the run with a non-zero exit:
+Needs one CUDA card and nvcc; builds the three kernel sources from csrc/ at
+the start, one nvcc process each, all at once.  K2 and K3 have one
+instantiation per device potential (csrc/common.cuh): K2 for eight schools
+noncentered and centered and kidiq, K3 for those and diamonds (d = 26).
+Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and CUDA
-   versions, the nvcc build times;
+   versions, the nvcc build times, ptxas's registers, stack frame and
+   spills of every kernel;
 2. K1 (csrc/chol_update.cu) against its plain PyTorch version on the card at
    (C, d) = (4096, 10), (1024, 26), (37, 5) and every d from 1 to 32, the
    NaN of an indefinite downdate, strict triangularity; card times of
    kernel and plain version at (4096, 10) (CUDA events around CUDA-graph
    replays);
-3. K2 (csrc/arwmh_fused.cu) against its plain version on injected draws at
-   C = 4096, d = 10, 16 steps with frames; times of both;
-4. K3 (csrc/asss_fused.cu) against its plain version on injected draws at
-   C = 4096, d = 10, 16 steps with 4 frames at thinning 4: every field and
-   frame, and each chain's iteration count exactly; times of both; the
-   bail-out (max_shrinkage_iters=0 stays put bit for bit);
+3. K2 (csrc/arwmh_fused.cu), each instantiation against its plain version
+   on injected draws, 16 steps with frames: eight schools noncentered and
+   centered at (4096, 10), kidiq at (4096, 4); times of both;
+4. K3 (csrc/asss_fused.cu), each instantiation against its plain version
+   on injected draws, 16 steps with 4 frames at thinning 4: every field
+   and frame, and each chain's iteration count exactly: eight schools
+   noncentered and centered at (4096, 10), kidiq at (4096, 4), diamonds at
+   (1024, 26); its device potential against the target's potential_fn;
+   times of both; the bail-out (max_shrinkage_iters=0 stays put bit for
+   bit);
 5. the ARWMH main path: MCMC(arwmh(eight_schools_noncentered()),
    num_warmup=5000, num_samples=20000, thinning=10, n_chains=4096) with the
    lockstep step (through K1) and with ARWMHConfig(fused=True) (through K2);
@@ -29,9 +36,15 @@ ends the run with a non-zero exit:
    long step_n; then the lockstep step and the pipelined step_n (both
    through K1) for 500 + 1500 steps from fresh positions under the adapted
    scale of the K3 run;
-   every path: posterior bands, launch counts (all counts set to 0 just
+7. the slice: MCMC(asss(diamonds(), ASSSConfig(fused=True))) at 1024
+   chains through K3, against the PosteriorDB gold draws; kidiq through K3
+   and K2 at 4096 chains, against the float64 OLS fit; centered eight
+   schools through K3 and K2 (finite draws: its funnel makes a short
+   posterior gate unreliable);
+   every path: posterior checks, launch counts (all counts set to 0 just
    before the path and read just after it) and chain-iters/s;
-7. one JSON line of kernel results, then the contract line last.
+8. one JSON line of kernel results, one entry per instantiation, then the
+   contract line last.
 """
 
 import dataclasses
@@ -51,6 +64,22 @@ K3_RTOL, K3_ATOL = 2e-5, 2e-6
 N_CHAINS, NUM_WARMUP, NUM_SAMPLES, THINNING = 4096, 5000, 20000, 10
 K1_ASSS_WARMUP, K1_ASSS_SAMPLES = 500, 1500
 KERNELS = ("chol_update", "arwmh_fused", "asss_fused")
+# the slice: ASSS on diamonds through K3, sized from the JAX package's ASSS
+# on the CPU (64 chains, pipelined driver), which needed 200000 warmup
+# steps before the gold bands held (PERF.md)
+SLICE_CHAINS, SLICE_WARMUP, SLICE_SAMPLES = 1024, 300000, 50000
+DIAMONDS_MAX_MEAN_ERR = 0.3            # max_k |mean_k - gold_k| / gold_sd_k
+DIAMONDS_SD_RATIO = (0.7, 1.4)         # sampled sd / gold sd, every k
+KIDIQ_WARMUP, KIDIQ_SAMPLES = 5000, 10000
+KIDIQ_MEAN_ERR, KIDIQ_SIGMA_REL = 0.1, 0.03   # in OLS s.e.; of the resid sd
+CENTERED_WARMUP, CENTERED_SAMPLES = 2000, 2000
+# kidiq posterior sd of log sigma, about (the s.e. of beta come from OLS)
+KIDIQ_LOG_SIGMA_SD = 0.035
+# the TPU kernels the instantiations replace
+K2_REPLACES = "adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426"
+K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
+K2_TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq")
+K3_TARGETS = K2_TARGETS + ("diamonds",)
 
 
 def require(ok, what: str) -> None:
@@ -133,15 +162,70 @@ def check_k1(k1, dev) -> dict:
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def check_k2(amt, k2, dev) -> dict:
-    t = amt.eight_schools_noncentered()
+def gold_draws(amt) -> np.ndarray:
+    """The PosteriorDB gold draws of diamonds (10000, 26), flat
+    unconstrained, float64 (vendored beside the JAX package's models)."""
+    return np.load(amt.models.data.JAX_MODELS_DIR / "_gold"
+                   / "diamonds.npy").astype(np.float64)
+
+
+def kidiq_ols(amt):
+    """float64 OLS fit of the kidiq data: (b̂, standard errors, residual
+    sd).  Under the flat prior on beta the posterior mean of beta is b̂."""
+    d = amt.models.data.kidiq()
+    X = np.stack([np.ones(len(d["kid_score"])), d["mom_hs"], d["mom_iq"]],
+                 axis=1).astype(np.float64)
+    y = d["kid_score"].astype(np.float64)
+    xtx = X.T @ X
+    b_hat = np.linalg.solve(xtx, X.T @ y)
+    r = y - X @ b_hat
+    s2 = (r @ r) / (len(y) - X.shape[1])
+    return b_hat, np.sqrt(np.diag(np.linalg.inv(xtx)) * s2), np.sqrt(s2)
+
+
+def start_state(amt, name: str, C: int, g, dev):
+    """(x, loc, lower factor) of a kernel check.  Eight schools: uniform
+    (-2, 2) positions, loc x and the identity.  Kidiq and diamonds: where
+    the posterior puts its mass, under a factor of its size, as after
+    warmup (from uniform positions the 16 steps barely move them)."""
+    t = getattr(amt, name)()
+    d = t.dim
+    if name.startswith("eight_schools"):
+        x = torch.rand((C, d), generator=g, device=dev) * 4 - 2
+        return x, x.clone(), torch.eye(d, device=dev).expand(C, d, d)
+    if name == "kidiq":
+        b_hat, se, s = kidiq_ols(amt)
+        mean = np.append(b_hat, np.log(s))
+        sd = np.append(se, KIDIQ_LOG_SIGMA_SD)
+        S = np.diag(sd)
+    else:
+        gold = gold_draws(amt)
+        mean, S = gold.mean(0), np.linalg.cholesky(np.cov(gold.T))
+        sd = np.sqrt(np.diag(np.cov(gold.T)))
+    mean_t = torch.tensor(mean, dtype=torch.float32, device=dev)
+    x = mean_t + torch.randn((C, d), generator=g, device=dev) \
+        * torch.tensor(sd, dtype=torch.float32, device=dev)
+    S_t = torch.tensor(S, dtype=torch.float32, device=dev)
+    return x, mean_t.expand(C, d).clone(), S_t.expand(C, d, d)
+
+
+def check_device_potential(k3, t, x) -> float:
+    """The target's __device__ potential against its potential_fn on the
+    card at the rows of x; returns the max abs difference."""
+    got, want = k3.device_potential(t, x), t.potential_fn(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=K3_RTOL, atol=K3_ATOL)
+    return float((got.double() - want.double()).abs().max())
+
+
+def check_k2(amt, k2, dev, name: str) -> dict:
+    t = getattr(amt, name)()
     cfg = amt.ARWMHConfig(num_warmup=4)
     C, S, d = N_CHAINS, 16, t.dim
     g = torch.Generator(dev).manual_seed(123)
-    x = torch.rand((C, d), generator=g, device=dev) * 4 - 2
-    state = (x, t.potential_fn(x), torch.zeros(C, device=dev), x.clone(),
-             torch.eye(d, device=dev).expand(C, d, d).contiguous(),
-             torch.zeros(C, device=dev), 0)
+    x, loc, L = start_state(amt, name, C, g, dev)
+    state = (x, t.potential_fn(x), torch.zeros(C, device=dev), loc,
+             L.contiguous(), torch.zeros(C, device=dev), 0)
     noise = torch.randn((S, C, d), generator=g, device=dev)
     unif = torch.rand((S, C), generator=g, device=dev)
     drive = k2.build_fused_arwmh(t, cfg)
@@ -163,23 +247,23 @@ def check_k2(amt, k2, dev) -> dict:
         torch.testing.assert_close(a, b, rtol=K2_RTOL, atol=K2_ATOL)
         worst = max(worst, float((a.double() - b.double()).abs().max()))
     moved = (got[0] != state[0]).any(dim=1).float().mean()
-    print(f"K2 C={C} d={d} S={S}: max_abs_err={worst:.3e}, "
+    require(float(moved) > 0.5, f"K2 {name}: only {float(moved)} moved")
+    print(f"K2 {name} C={C} d={d} S={S}: max_abs_err={worst:.3e}, "
           f"chains moved {float(moved):.3f}")
     ms = device_ms(kernel, 10)
     plain_ms = device_ms(plain, 1)
-    print(f"K2 (4096, d=10, 16 steps): kernel {ms:.6f} ms, "
+    print(f"K2 {name} ({C}, d={d}, 16 steps): kernel {ms:.6f} ms, "
           f"plain {plain_ms:.6f} ms")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def check_k3(amt, k3, dev) -> dict:
-    t = amt.eight_schools_noncentered()
+def check_k3(amt, k3, dev, name: str, C: int) -> dict:
+    t = getattr(amt, name)()
     cfg = amt.ASSSConfig(num_warmup=8)
-    C, n_steps, F, thin, d = N_CHAINS, 16, 4, 4, t.dim
+    n_steps, F, thin, d = 16, 4, 4, t.dim
     g = torch.Generator(dev).manual_seed(321)
-    x = torch.rand((C, d), generator=g, device=dev) * 4 - 2
-    state = (x, t.potential_fn(x), x.clone(),
-             torch.eye(d, device=dev).expand(C, d, d).contiguous(), 0,
+    x, loc, S = start_state(amt, name, C, g, dev)
+    state = (x, t.potential_fn(x), loc, S.contiguous(), 0,
              torch.zeros(C, device=dev))
     rows = 1024
     unif3 = torch.rand((rows, 3, C), generator=g, device=dev) \
@@ -204,7 +288,7 @@ def check_k3(amt, k3, dev) -> dict:
     (got, gf, gi), (want, wf, wi) = kernel(), plain()
     torch.cuda.synchronize()
     require(torch.equal(gi, wi) and torch.equal(gi, iters0),
-            "K3 iteration counts differ from the plain version's")
+            f"K3 {name}: iteration counts differ from the plain version's")
     require(int(got[4]) == int(want[4]) == n_steps, "K3 step counter")
     pairs = [(got[k], want[k]) for k in (0, 1, 2, 3, 5)] \
         + [(gf[k], wf[k]) for k in wf]
@@ -215,15 +299,24 @@ def check_k3(amt, k3, dev) -> dict:
     require(torch.equal(gf["position"][:, -1], got[0]),
             "K3 last frame is not the final state")
     moved = (got[0] != state[0]).any(dim=1).float().mean()
-    print(f"K3 C={C} d={d} {n_steps} steps: max_abs_err={worst:.3e}, "
+    require(float(moved) > 0.5, f"K3 {name}: only {float(moved)} moved")
+    pot_err = max(check_device_potential(k3, t, x),
+                  check_device_potential(k3, t, got[0]))
+    print(f"K3 {name} C={C} d={d} {n_steps} steps: max_abs_err={worst:.3e}, "
           f"iterations per chain {float(gi.float().mean()):.2f} mean, "
-          f"{int(gi.min())}..{used}, chains moved {float(moved):.3f}")
+          f"{int(gi.min())}..{used}, chains moved {float(moved):.3f}; "
+          f"device potential vs potential_fn max abs {pot_err:.3e}")
     ms = device_ms(kernel, 10)
     plain_ms = device_ms(plain, 1)
-    print(f"K3 (4096, d=10, 16 steps, {used} draw rows): kernel {ms:.6f} ms, "
-          f"plain {plain_ms:.6f} ms")
+    print(f"K3 {name} ({C}, d={d}, 16 steps, {used} draw rows): kernel "
+          f"{ms:.6f} ms, plain {plain_ms:.6f} ms")
+    if name == "eight_schools_noncentered":
+        check_k3_bailout(amt, k3, t, state, g)
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
-    # bail-out: with max_shrinkage_iters=0 every transition stays put
+
+def check_k3_bailout(amt, k3, t, state, g) -> None:
+    """With max_shrinkage_iters=0 every transition stays put."""
     bail = k3.build_fused_asss(t, amt.ASSSConfig(max_shrinkage_iters=0))
     out, frames, iters = bail(state, 8, 2, 4, generator=g,
                               return_iters=True)
@@ -235,7 +328,6 @@ def check_k3(amt, k3, dev) -> dict:
     require(int(out[4]) == 8 and bool((iters == 9).all()),
             "K3 bail-out step or iteration count")
     print("K3 bail-out: positions unchanged bit for bit, i advanced by 8")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
 def reset_launches(*modules) -> None:
@@ -355,6 +447,80 @@ def run_asss_k1(amt, adapted, lockstep: bool, card: str) -> float:
     return rate
 
 
+def run_fused(amt, name: str, sampler: str, C: int, num_warmup: int,
+              num_samples: int, card: str):
+    """One target through K3 (ASSS) or K2 (ARWMH) from MCMC(...).run(...);
+    returns (chain-iters/s, flat unconstrained draws (T, C, d) on the
+    card)."""
+    t = getattr(amt, name)()
+    kernel = (amt.asss(t, amt.ASSSConfig(fused=True)) if sampler == "ASSS"
+              else amt.arwmh(t, amt.ARWMHConfig(fused=True)))
+    mcmc = amt.MCMC(kernel, num_warmup=num_warmup, num_samples=num_samples,
+                    thinning=THINNING, n_chains=C)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc.run(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mcmc.print_summary()
+    print(mcmc.diagnostics_str())
+    label = f"{sampler} fused ({'K3' if sampler == 'ASSS' else 'K2'}) {name}"
+    draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
+    require(draws.is_cuda, f"{label}: draws not on the card")
+    require(tuple(draws.shape) == (num_samples // THINNING, C, t.dim),
+            f"{label}: draws shape {tuple(draws.shape)}")
+    require(bool(torch.isfinite(draws).all()), f"{label}: non-finite draws")
+    steps = num_warmup + num_samples
+    rate = C * steps / wall
+    print(f"{label}: {rate:.1f} chain-iters/s ({C} chains x {steps} steps "
+          f"in {wall:.3f} s, build excluded) on {card}")
+    return rate, draws
+
+
+def diamonds_gate(amt, draws) -> None:
+    """The pooled draws against the gold: every coordinate's mean within
+    DIAMONDS_MAX_MEAN_ERR gold sd, every sd ratio in DIAMONDS_SD_RATIO."""
+    gold = gold_draws(amt)
+    gm, gsd = gold.mean(0), gold.std(0)
+    x = draws.double()
+    flat = x.reshape(-1, x.shape[-1])
+    err = np.abs(flat.mean(0).cpu().numpy() - gm) / gsd
+    ratio = flat.std(0).cpu().numpy() / gsd
+    # chains whose own mean is 3 gold sd off in some coordinate (stuck)
+    chain_err = (x.mean(0).cpu().numpy() - gm) / gsd
+    stuck = int((np.abs(chain_err) > 3.0).any(axis=1).sum())
+    print(f"diamonds vs gold: max standardized mean error {err.max():.4f} "
+          f"(coordinate {int(err.argmax())}), sd ratio "
+          f"[{ratio.min():.4f}, {ratio.max():.4f}], chains 3 gold sd off "
+          f"{stuck} of {x.shape[1]}")
+    require(err.max() <= DIAMONDS_MAX_MEAN_ERR,
+            f"diamonds mean error {err.max()}")
+    lo, hi = DIAMONDS_SD_RATIO
+    require(lo <= ratio.min() and ratio.max() <= hi,
+            f"diamonds sd ratio [{ratio.min()}, {ratio.max()}]")
+
+
+def kidiq_gate(amt, draws, label: str) -> None:
+    """beta's posterior mean within KIDIQ_MEAN_ERR OLS s.e. of b̂, sigma's
+    posterior median within KIDIQ_SIGMA_REL of the residual sd."""
+    b_hat, se, s = kidiq_ols(amt)
+    flat = draws.double().reshape(-1, 4)
+    err = np.abs(flat[:, :3].mean(0).cpu().numpy() - b_hat) / se
+    sigma_rel = float(torch.exp(flat[:, 3]).median()) / s - 1.0
+    print(f"{label}: |mean(beta) - OLS| / se {np.round(err, 4).tolist()}, "
+          f"sigma median / resid sd - 1 = {sigma_rel:.5f}")
+    require(err.max() <= KIDIQ_MEAN_ERR, f"{label}: beta mean error {err}")
+    require(abs(sigma_rel) <= KIDIQ_SIGMA_REL,
+            f"{label}: sigma median off by {sigma_rel}")
+
+
+def kernel_entry(name: str, source: str, replaces: str, launches: int,
+                 res: dict) -> dict:
+    return dict(name=name, route="cuda",
+                source=f"adaptive_mcmc_tpu_torch/csrc/{source}",
+                replaces=replaces, launches=launches, **res)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -384,11 +550,15 @@ def main() -> int:
               for n in KERNELS) + ")")
     for name in KERNELS:
         _build.load(name)
+        for line in _build.ptxas_summary(name):
+            print(f"ptxas {name}: {line}")
 
     # 2.-4. kernels against their plain versions
     k1_res = check_k1(k1, dev)
-    k2_res = check_k2(amt, k2, dev)
-    k3_res = check_k3(amt, k3, dev)
+    k2_res = {name: check_k2(amt, k2, dev, name) for name in K2_TARGETS}
+    k3_res = {name: check_k3(amt, k3, dev, name,
+                             SLICE_CHAINS if name == "diamonds" else N_CHAINS)
+              for name in K3_TARGETS}
     counters = (k1, k2, k3)
 
     # 5. the ARWMH main path, through K1 and K2
@@ -425,21 +595,53 @@ def main() -> int:
           f"({k3_us:.4f} µs per step in step_n), ASSS lockstep "
           f"{k1_asss[True][0]:.1f}, ASSS pipelined {k1_asss[False][0]:.1f}")
 
-    # 7. results
-    kernels = [
-        dict(name="chol_update", route="cuda",
-             source="adaptive_mcmc_tpu_torch/csrc/chol_update.cu",
-             replaces="adaptive_mcmc_tpu/ops/pallas/chol_update.py:107",
-             launches=k1_main, **k1_res),
-        dict(name="arwmh_fused", route="cuda",
-             source="adaptive_mcmc_tpu_torch/csrc/arwmh_fused.cu",
-             replaces="adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426",
-             launches=k2_main, **k2_res),
-        dict(name="asss_fused", route="cuda",
-             source="adaptive_mcmc_tpu_torch/csrc/asss_fused.cu",
-             replaces="adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526",
-             launches=k3_main, **k3_res),
-    ]
+    # 7. the slice: diamonds through K3; kidiq through K3 and K2 with its
+    # OLS check; centered eight schools through K3 and K2
+    launches = {("arwmh_fused", "eight_schools_noncentered"): k2_main,
+                ("asss_fused", "eight_schools_noncentered"): k3_main}
+    rates = {}
+    paths = [("diamonds", "ASSS", SLICE_CHAINS, SLICE_WARMUP, SLICE_SAMPLES)]
+    for name, warmup, samples in (
+            ("kidiq", KIDIQ_WARMUP, KIDIQ_SAMPLES),
+            ("eight_schools_centered", CENTERED_WARMUP, CENTERED_SAMPLES)):
+        paths += [(name, "ASSS", N_CHAINS, warmup, samples),
+                  (name, "ARWMH", N_CHAINS, warmup, samples)]
+    for name, sampler, C, warmup, samples in paths:
+        mod, lib = (k3, "asss_fused") if sampler == "ASSS" \
+            else (k2, "arwmh_fused")
+        reset_launches(*counters)
+        rate, draws = run_fused(amt, name, sampler, C, warmup, samples, card)
+        launches[(lib, name)] = mod.launches
+        rates[(sampler, name)] = rate
+        label = f"{sampler} fused {name}"
+        print(f"launches: {label} {lib} {mod.launches}")
+        require(mod.launches > 0, f"{label} never launched {lib}")
+        if name == "diamonds":
+            diamonds_gate(amt, draws)
+        elif name == "kidiq":
+            kidiq_gate(amt, draws, label)
+        else:
+            sites = getattr(amt, name)().constrain(draws)
+            print(f"{label}: mu mean {float(sites['mu'].mean()):.4f}, tau "
+                  f"median {float(sites['tau'].median()):.4f} (no gate)")
+        del draws
+    print(f"chain-iters/s on {card}: " + ", ".join(
+        f"{sampler} fused {name} {rate:.1f}"
+        for (sampler, name), rate in rates.items()))
+
+    # 8. results
+    kernels = [kernel_entry(
+        "chol_update", "chol_update.cu",
+        "adaptive_mcmc_tpu/ops/pallas/chol_update.py:107", k1_main, k1_res)]
+    for lib, source, replaces, targets, res in (
+            ("arwmh_fused", "arwmh_fused.cu", K2_REPLACES, K2_TARGETS,
+             k2_res),
+            ("asss_fused", "asss_fused.cu", K3_REPLACES, K3_TARGETS,
+             k3_res)):
+        for name in targets:
+            tag = getattr(amt, name)().device_potential
+            kernels.append(kernel_entry(f"{lib}[{tag}]", source, replaces,
+                                        launches[(lib, name)], res[name]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -170,16 +170,60 @@ def test_plain_version_bailout_stays_put(max_trips):
 
 
 def test_fused_rejects_targets_without_a_device_potential():
-    """K3 has a device potential for eight-schools only: the wrapper's
-    target check, which runs before any launch on a CUDA state, refuses
-    other targets; the plain version runs them."""
+    """K3 runs a target on the card only if the target carries the tag of
+    a device potential (``Target.device_potential``): the wrapper's check,
+    which runs before any launch on a CUDA state, refuses untagged targets;
+    the plain version runs them."""
     with pytest.raises(NotImplementedError):
         k3.check_device_potential(amt.std_normal(3), "fused ASSS")
-    k3.check_device_potential(amt.eight_schools_noncentered(), "fused ASSS")
+    assert k3.check_device_potential(amt.eight_schools_noncentered(),
+                                     "fused ASSS") \
+        == "eight_schools_noncentered"
     k = amt.asss(amt.std_normal(3), amt.ASSSConfig(fused=True))
     st = k.step_n(k.init(torch.Generator().manual_seed(0), n_chains=2), 3,
                   torch.Generator().manual_seed(1))
     assert int(st.i) == 3
+
+
+# the targets each fused kernel runs on the card, by their device-potential
+# tag; K2 keeps its factor in registers and stops at d = 16
+TAGGED = {
+    "eight_schools_noncentered": amt.eight_schools_noncentered,
+    "eight_schools_centered": amt.eight_schools_centered,
+    "kidiq": amt.kidiq,
+    "diamonds_ss": amt.diamonds,
+}
+UNTAGGED = {
+    "diamonds_dense": lambda: amt.diamonds(suff_stats=False),
+    "mvn": lambda: amt.mvn(np.zeros(3), np.eye(3)),
+    "std_normal": lambda: amt.std_normal(3),
+    "gaussian_mixture_1d": amt.gaussian_mixture_1d,
+}
+
+
+@pytest.mark.parametrize("kernel", ["fused ASSS", "fused ARWMH"])
+@pytest.mark.parametrize("name", sorted(UNTAGGED))
+def test_device_potential_gate_refuses_untagged_targets(name, kernel):
+    """The gate reads the tag, not the name: the dense diamonds form has
+    the name of the sufficient-statistic form but no device twin."""
+    t = UNTAGGED[name]()
+    assert t.device_potential is None
+    with pytest.raises(NotImplementedError):
+        k3.check_device_potential(t, kernel)
+
+
+@pytest.mark.parametrize("tag", sorted(TAGGED))
+def test_device_potential_gate_accepts_tagged_targets(tag):
+    t = TAGGED[tag]()
+    assert t.device_potential == tag
+    assert k3.check_device_potential(t, "fused ASSS") == tag
+    if tag == "diamonds_ss":                 # d = 26: no K2 instantiation
+        with pytest.raises(NotImplementedError):
+            k3.check_device_potential(t, "fused ARWMH")
+        with pytest.raises(NotImplementedError):
+            amt.arwmh(t, amt.ARWMHConfig(fused=True))
+    else:
+        assert k3.check_device_potential(t, "fused ARWMH") == tag
 
 
 def test_drive_leaves_the_callers_state_unchanged():

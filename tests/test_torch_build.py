@@ -36,3 +36,22 @@ def test_sources_follow_quoted_includes_once():
         assert [p.name for p in paths] == [f"{name}.cu", "common.cuh"]
     assert [p.name for p in _build._sources(_build.CSRC / "chol_update.cu")] \
         == ["chol_update.cu"]
+
+
+def test_parse_ptxas_report():
+    text = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z6kernelIN3amt5KidiqEEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelIN3amt5KidiqEEvv
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 600 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z3potv' for 'sm_90a'
+ptxas info    : Function properties for _Z3potv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers, 380 bytes cmem[0]
+"""
+    assert _build.parse_ptxas(text) == [
+        "_Z6kernelIN3amt5KidiqEEvv: 255 registers, 8-byte stack frame, "
+        "4 bytes spill stores, 4 bytes spill loads",
+        "_Z3potv: 40 registers, 0-byte stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads",
+    ]

@@ -4,6 +4,7 @@ each test needs a CUDA device and nvcc, and skips where
 torch.cuda.is_available() is false.  Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -q -n 0``."""
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -13,6 +14,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import adaptive_mcmc_tpu_torch as amt  # noqa: E402
+from adaptive_mcmc_tpu_torch.ops.cuda import _build  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1  # noqa: E402
@@ -166,3 +168,141 @@ def test_asss_drivers_go_through_k1(cuda, lockstep):
                                     n_chains=64)
     assert samples.is_cuda and bool(torch.isfinite(samples).all())
     assert int(last.i) == 60 and k1.launches > 0
+
+
+# the instantiations of K2 and K3 by target builder; K2 stops at d = 16
+K2_TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq")
+K3_TARGETS = K2_TARGETS + ("diamonds",)
+
+
+def _start(t, C, device, seed):
+    """Positions near the posterior's mass for kidiq and diamonds (the
+    gold draws' mean and covariance, or a rough fit), uniform (-2, 2)
+    otherwise; loc there too and the identity or the covariance's factor."""
+    g = torch.Generator(device).manual_seed(seed)
+    d = t.dim
+    if t.name == "diamonds":
+        gold = np.load(amt.models.data.JAX_MODELS_DIR / "_gold"
+                       / "diamonds.npy").astype(np.float64)
+        mean, S = gold.mean(0), np.linalg.cholesky(np.cov(gold.T))
+        sd = gold.std(0)
+    elif t.name == "kidiq":
+        mean = np.array([26.0, 6.0, 0.6, np.log(17.5)])
+        sd = np.array([9.0, 2.3, 0.06, 0.035])
+        S = np.diag(sd)
+    else:
+        x = torch.rand((C, d), generator=g, device=device) * 4 - 2
+        return g, x, x.clone(), torch.eye(d, device=device).expand(C, d, d)
+    f32 = dict(dtype=torch.float32, device=device)
+    x = torch.tensor(mean, **f32) + torch.randn(
+        (C, d), generator=g, device=device) * torch.tensor(sd, **f32)
+    return (g, x, torch.tensor(mean, **f32).expand(C, d).clone(),
+            torch.tensor(S, **f32).expand(C, d, d))
+
+
+@pytest.mark.parametrize("name", K3_TARGETS)
+def test_device_potential_matches_potential_fn(cuda, name):
+    """The __device__ twin in the operation order of potential_fn: equal
+    up to the float32 rounding the card gives both alike."""
+    t = getattr(amt, name)()
+    _, x, _, _ = _start(t, 512, cuda, 3)
+    x = torch.cat([x, torch.rand_like(x) * 4 - 2])
+    got, want = k3.device_potential(t, x), t.potential_fn(x)
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", K3_TARGETS)
+def test_k3_instantiation_matches_plain_version(cuda, name):
+    t = getattr(amt, name)()
+    cfg = amt.ASSSConfig(num_warmup=8)
+    C, d, rows = 256, t.dim, 512
+    g, x, loc, S = _start(t, C, cuda, 4)
+    state = (x, t.potential_fn(x), loc, S.contiguous(), 0,
+             torch.zeros(C, device=cuda))
+    unif3 = torch.rand((rows, 3, C), generator=g, device=cuda) \
+        .clamp_(1e-6, 1 - 1e-6)
+    n01 = torch.randn((rows, d + 1, C), generator=g, device=cuda)
+    before = k3.launches
+    got, gf, gi = k3.build_fused_asss(t, cfg)(
+        state, 16, 4, 4, unif3=unif3, n01=n01, return_iters=True)
+    assert k3.launches == before + 1
+    want, wf, wi = k3.fused_asss_reference(
+        t, cfg, state, 16, 4, 4, unif3=unif3, n01=n01, return_iters=True)
+    assert int(gi.max()) <= rows
+    assert torch.equal(gi, wi)
+    for k in (0, 1, 2, 3, 5):
+        torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-6)
+    for k in wf:
+        torch.testing.assert_close(gf[k], wf[k], rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("name", K2_TARGETS)
+def test_k2_instantiation_matches_plain_version(cuda, name):
+    t = getattr(amt, name)()
+    cfg = amt.ARWMHConfig(num_warmup=4)
+    C, S, d = 256, 16, t.dim
+    g, x, loc, L = _start(t, C, cuda, 5)
+    state = (x, t.potential_fn(x), torch.zeros(C, device=cuda), loc,
+             L.contiguous(), torch.zeros(C, device=cuda),
+             torch.zeros((), dtype=torch.int32, device=cuda))
+    noise = torch.randn((S, C, d), generator=g, device=cuda)
+    unif = torch.rand((S, C), generator=g, device=cuda)
+    got, gf = k2.build_fused_arwmh(t, cfg)(state, S, 4, 4, noise=noise,
+                                           unif=unif)
+    want, wf = k2.fused_arwmh_reference(t, cfg, state, S, 4, 4, noise=noise,
+                                        unif=unif)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=2e-6)
+    for k in wf:
+        torch.testing.assert_close(gf[k], wf[k], rtol=2e-5, atol=2e-6)
+
+
+@pytest.mark.parametrize("lib,name", [("asss_fused", n) for n in K3_TARGETS]
+                         + [("arwmh_fused", n) for n in K2_TARGETS])
+def test_instantiation_refuses_a_wrong_d(cuda, lib, name):
+    """Each entry point checks D against its potential's and returns
+    cudaErrorInvalidValue (1) before any launch."""
+    t = getattr(amt, name)()
+    tag, C, d = t.device_potential, 64, t.dim + 1
+    data = t.data.on(cuda)["kernel_data"]
+    x = torch.zeros((C, d), device=cuda)
+    out = torch.empty(C, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    if lib == "asss_fused":
+        fn = _build.function(lib, f"asss_fused_potential_{tag}",
+                             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                             + [ctypes.c_void_p])
+        assert fn(x.data_ptr(), out.data_ptr(), data.data_ptr(),
+                  data.numel(), C, d, stream) == 1
+        st = k3._prepare((x, out, x, torch.zeros((C, d, d), device=cuda), 0,
+                          out), 1, 0, 1, torch.Generator(cuda), None,
+                         None)[0]
+        args = k3.kernel_args(amt.ASSSConfig(), st, torch.zeros(
+            C, dtype=torch.int32, device=cuda), data, None, None, {}, 1, 0,
+            1, 0, 1)
+        fn = _build.function(lib, f"asss_fused_{tag}", k3._ARGTYPES)
+    else:
+        st = {k: torch.zeros(s, device=cuda) for k, s in (
+            ("x", (d, C)), ("pe", C), ("map", C), ("loc", (d, C)),
+            ("L", (d, d, C)), ("lam", C), ("as", C))}
+        args = k2.kernel_args(amt.ARWMHConfig(), st, data, 0, 1, 0, 1,
+                              None, None, {}, 1)
+        fn = _build.function(lib, f"arwmh_fused_{tag}", k2._ARGTYPES)
+    assert fn(*args, stream) == 1
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError):
+        _build.check(1, f"{lib}_{tag}")
+
+
+@pytest.mark.parametrize("name", ["kidiq", "diamonds"])
+def test_asss_main_path_goes_through_k3_per_target(cuda, name):
+    t = getattr(amt, name)()
+    k3.launches = 0
+    mcmc = amt.MCMC(amt.asss(t, amt.ASSSConfig(fused=True)),
+                    num_warmup=200, num_samples=400, thinning=4,
+                    n_chains=128)
+    mcmc.run(torch.Generator(cuda).manual_seed(1))
+    samples = mcmc.get_samples(flat_unconstrained=True)
+    assert samples.is_cuda and samples.shape == (100 * 128, t.dim)
+    assert bool(torch.isfinite(samples).all())
+    assert k3.launches > 0
