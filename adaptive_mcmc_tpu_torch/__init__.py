@@ -6,8 +6,9 @@ path rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``).  It holds the
 samplers so far: batched adaptive ARWMH and ASSS on the PosteriorDB
 posteriors (eight schools noncentered and centered, kidiq, diamonds),
 driven by ``run_mcmc`` / ``MCMC``, with kernel K1 (the rank-1 Cholesky
-update), kernel K2 (the fused ARWMH sweep, d <= 16) and kernel K3 (the fused
-ASSS sweep, ``ASSSConfig(fused=True)``, diamonds at d = 26 included).  It
+update), kernel K2 (the fused ARWMH sweep, ``ARWMHConfig(fused=True)``) and kernel
+K3 (the fused ASSS sweep, ``ASSSConfig(fused=True)``), both taking every
+posterior above, diamonds at d = 26 included.  It
 never imports JAX.
 
     import torch

@@ -1,6 +1,7 @@
-// Kernel K2: the fused ARWMH sweep on Hopper (sm_90a), for the targets
-// with a device potential at d <= 16: eight schools noncentered and
-// centered (d = 10) and kidiq (d = 4).
+// Kernel K2: the fused ARWMH sweep on Hopper (sm_90a), for every target
+// with a device potential: eight schools noncentered and centered
+// (d = 10), kidiq (d = 4) and diamonds in its sufficient-statistic form
+// (d = 26).
 //
 // Replaces the Pallas TPU kernel built by build_fused_arwmh in
 // adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py (_make_kernel / _one_step),
@@ -10,14 +11,11 @@
 // adaptive_mcmc_tpu_torch/ops/cuda/arwmh_fused.py, whose operation order
 // this kernel follows.
 //
-// One launch runs n_steps whole ARWMH transitions.  One thread owns one
-// chain and keeps its whole state in registers for the launch: x and loc
-// (d each), the lower half of L (d(d+1)/2 = 55 floats at d = 10), pe, the
-// running mean acceptance and log step size.  d = P::D is a template
-// parameter, so every loop over d unrolls and all indexing is static.  At
-// d = 26 (diamonds) the factor and the guard's second copy (2 x 351 floats)
-// do not fit in registers; K2 has no instantiation there (the JAX package
-// keeps d > 16 off its fused ARWMH kernel too).  Per step:
+// One launch runs n_steps whole ARWMH transitions.  A chain keeps its whole
+// state in registers for the launch: x and loc (d each), the lower half of
+// L, pe, the running mean acceptance and log step size.  d = P::D is a
+// template parameter, so every loop over d unrolls and all indexing is
+// static.  Per step:
 //   1. draws: Box-Muller normals over u1 in (0, 1] and 24-bit uniforms from
 //      a counter-based Philox4x32-10 keyed by (seed, chain) with the step
 //      index as counter, or injected noise (S, d, C) / unif (S, C) (the
@@ -33,21 +31,33 @@
 //   7. as_change = ||L' e^lam' - L e^lam||_F, only on a recorded or final
 //      step; thinned frames are written chains-last to (F, d, C), (F, C).
 //
-// Bound: arithmetic latency and register pressure, not bytes.  The state is
-// read and written once per launch and frames are a small thinned stream;
-// each step is a dependent chain of a few thousand instructions per thread
-// (divisions and square roots of the column recursion, exp/log/log1p of the
-// potential, Philox rounds).  The design keeps every operand in registers
-// and puts one warp per block so the 4096 chains of the main path spread
-// over the card's SMs.  Build without fast math: IEEE division and sqrt keep
-// the NaN of an indefinite update, and no FMA contraction keeps rounding
-// close to the plain version.
+// What bounds it: latency, not bytes or operations.  The state is read and
+// written once per launch and frames are a small thinned stream; each step
+// is a dependent chain of a few thousand operations per chain (divisions
+// and square roots of the column recursion, exp/log/log1p of the
+// potential, Philox rounds), with few warps per SM to hide it.  The design
+// keeps every operand in registers and shortens each chain's dependent path
+// with a group of lanes (common.cuh), as K3 does:
+//   * d = 10: one thread per chain, the 55-float factor and its guard copy
+//     in registers, one warp per block so 4096 chains spread over the SMs;
+//   * kidiq (d = 4): 16 lanes per chain, the state replicated, the
+//     434-term data sum split into its 14 running sums;
+//   * diamonds (d = 26): a warp per chain, lane i owning x_i, loc_i and row
+//     i of L.  2 x 351 factor floats do not fit one thread's registers; a
+//     row and its update (2 x 26) fit a lane's.  The proposal is a row per
+//     lane against z_j broadcast by shuffles, the rank-1 update and the
+//     NaN guard are common.cuh's rank1_rows, the MH test runs alike on
+//     every lane.
+// Build without fast math: IEEE division and sqrt keep the NaN of an
+// indefinite update, and no FMA contraction keeps rounding close to the
+// plain version.
 
 #include "common.cuh"
 
 namespace {
 
 using amt::bits01;
+using amt::Group;
 using amt::tri;
 
 constexpr int kThreads = 32;
@@ -79,15 +89,25 @@ struct Params {
   unsigned long long seed;
 };
 
+// frame index of step s, or -1 when step s records none
+__device__ __forceinline__ int frame_of(const Params& p, int s) {
+  const int f = (s + 1) / p.thinning - 1;
+  return p.n_frames > 0 && (s + 1) % p.thinning == 0 && f < p.n_frames ? f
+                                                                        : -1;
+}
+
+// ---- replicated layout: every lane of the group holds the whole chain ----
+
 template <class P>
 __global__ void __launch_bounds__(kThreads)
-    arwmh_fused_kernel(const Params p) {
+    arwmh_replicated_kernel(const Params p) {
   constexpr int D = P::D;
-  static_assert(D <= 16, "K2 keeps the factor in registers: d <= 16");
   constexpr int NL = D * (D + 1) / 2;
   constexpr int kNormalBlocks = (D + 3) / 4;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  int c;
+  const Group<P::kLanes> g = amt::this_group<P::kLanes>(&c);
   if (c >= p.C) return;
+  const bool writer = g.lane == 0;
   const size_t C = static_cast<size_t>(p.C);
 
   typename P::Data data;
@@ -137,7 +157,7 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // 3.-4. potential and MH accept
-    float pe_prop = P::potential(xp, data);
+    float pe_prop = P::potential(xp, data, g);
     if (isnan(pe_prop)) pe_prop = CUDART_INF_F;
     const float e = expf(pe - pe_prop);
     const float ap = isnan(e) ? e : fminf(e, 1.0f);
@@ -149,11 +169,8 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // 5. adaptation clock and running means
-    const int itr = i_glob + 1;
-    const int n = i_glob < p.num_warmup ? itr : itr - p.num_warmup;
-    const float nf = static_cast<float>(n);
-    const float gamma =
-        p.lr_decay == 1.0f ? 1.0f / nf : expf(-p.lr_decay * logf(nf));
+    const float2 ck = amt::adapt_clock(i_glob, p.num_warmup, p.lr_decay);
+    const float nf = ck.x, gamma = ck.y;
     map = map + (ap - map) / nf;
     float w[D];
 #pragma unroll
@@ -192,10 +209,8 @@ __global__ void __launch_bounds__(kThreads)
     const float lam_new = lam + gamma * (ap - p.target_ap);
 
     // 7. as_change on recorded / final steps, then commit
-    const int f = (s + 1) / p.thinning - 1;
-    const bool is_frame =
-        p.n_frames > 0 && (s + 1) % p.thinning == 0 && f < p.n_frames;
-    if (is_frame || s == p.n_steps - 1) {
+    const int f = frame_of(p, s);
+    if (f >= 0 || s == p.n_steps - 1) {
       const float e1 = expf(lam_new), e0 = expf(lam);
       float sum = 0.0f;
 #pragma unroll
@@ -213,7 +228,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < NL; ++i) L[i] = Ln[i];
     }
     lam = lam_new;
-    if (is_frame) {
+    if (f >= 0 && writer) {
 #pragma unroll
       for (int i = 0; i < D; ++i) p.fx[(f * D + i) * C + c] = x[i];
       p.fpe[f * C + c] = pe;
@@ -221,6 +236,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
+  if (!writer) return;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     p.x[i * C + c] = x[i];
@@ -233,6 +249,138 @@ __global__ void __launch_bounds__(kThreads)
   p.map[c] = map;
   p.lam[c] = lam;
   p.as[c] = as_chg;
+}
+
+// ---- rows layout: a warp per chain, lane i owning coordinate i ----------
+
+template <class P>
+__global__ void __launch_bounds__(kThreads) arwmh_rows_kernel(const Params p) {
+  constexpr int D = P::D;
+  constexpr int kNormalBlocks = (D + 3) / 4;
+  static_assert(P::kLanes == 32 && D <= 32, "a warp per chain");
+  int c;
+  const Group<32> g = amt::this_group<32>(&c);
+  if (c >= p.C) return;
+  const int l = g.lane;
+  const bool own = l < D;
+  const size_t C = static_cast<size_t>(p.C);
+
+  typename P::RowData data;
+  P::load_row(p.data, p.n_data, l, &data);
+
+  float x = 0.0f, loc = 0.0f, row[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) row[j] = 0.0f;
+  if (own) {
+    x = p.x[l * C + c];
+    loc = p.loc[l * C + c];
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (j <= l) row[j] = p.L[(l * D + j) * C + c];
+  }
+  float pe = p.pe[c], map = p.map[c], lam = p.lam[c], as_chg = 0.0f;
+  const uint2 key = make_uint2(static_cast<uint32_t>(p.seed),
+                               static_cast<uint32_t>(c));
+  const uint32_t seed_hi = static_cast<uint32_t>(p.seed >> 32);
+
+  for (int s = 0; s < p.n_steps; ++s) {
+    const int i_glob = p.i0 + s;
+    // 1. draws: lane i its own normal (Philox block i / 4), every lane the
+    // uniform
+    float z = 0.0f, u;
+    if (p.noise != nullptr) {
+      if (own) z = p.noise[(s * D + l) * C + c];
+      u = p.unif[s * C + c];
+    } else {
+      z = amt::philox_normal_at(static_cast<uint32_t>(i_glob), 0u, seed_hi,
+                                key, l);
+      const uint4 r = amt::philox4x32_10(
+          make_uint4(static_cast<uint32_t>(i_glob), kNormalBlocks, seed_hi,
+                     0u),
+          key);
+      u = bits01(r.x);
+    }
+
+    // 2. proposal: lane i sums row i of L e^lam against z_j broadcast from
+    // lane j, after eps z_i, column by column as the plain version
+    const float ss = expf(lam);
+    float yi = p.eps * z;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const float zj = g.bcast(z, j);
+      if (j <= l) yi = yi + (row[j] * ss) * zj;
+    }
+    const float xp = x + yi;
+
+    // 3.-4. potential and MH accept, alike on every lane
+    float pe_prop = P::potential_rows(g, xp, data);
+    if (isnan(pe_prop)) pe_prop = CUDART_INF_F;
+    const float e = expf(pe - pe_prop);
+    const float ap = isnan(e) ? e : fminf(e, 1.0f);
+    if (u < ap) {
+      x = xp;
+      pe = pe_prop;
+    }
+
+    // 5. adaptation clock and running means
+    const float2 ck = amt::adapt_clock(i_glob, p.num_warmup, p.lr_decay);
+    const float nf = ck.x, gamma = ck.y;
+    map = map + (ap - map) / nf;
+    const float w = x - loc;
+    loc = loc + gamma * w;
+
+    // 6. rank-1 update with the warp's NaN guard
+    float rown[D];
+    const bool bad =
+        amt::rank1_rows<D>(g, row, w, gamma, sqrtf(1.0f - gamma), rown);
+    const float lam_new = lam + gamma * (ap - p.target_ap);
+
+    // 7. as_change on recorded / final steps (each lane's row, then the
+    // rows by a butterfly: the plain version's torch.sum has an order of
+    // its own), then commit
+    const int f = frame_of(p, s);
+    if (f >= 0 || s == p.n_steps - 1) {
+      const float e1 = expf(lam_new), e0 = expf(lam);
+      float part = 0.0f;
+#pragma unroll
+      for (int j = 0; j < D; ++j) {
+        if (j <= l) {
+          const float dv = (bad ? row[j] : rown[j]) * e1 - row[j] * e0;
+          part = part + dv * dv;
+        }
+      }
+      float sum = g.xor_sum(own ? part : 0.0f);
+      const float zu = 0.0f * e1 - 0.0f * e0;
+      sum = sum + static_cast<float>(D * (D - 1) / 2) * (zu * zu);
+      as_chg = sqrtf(sum);
+    }
+    if (!bad) {
+#pragma unroll
+      for (int j = 0; j < D; ++j) row[j] = rown[j];
+    }
+    lam = lam_new;
+    if (f >= 0) {
+      if (own) p.fx[(f * D + l) * C + c] = x;
+      if (l == 0) {
+        p.fpe[f * C + c] = pe;
+        p.fas[f * C + c] = as_chg;
+      }
+    }
+  }
+
+  if (own) {
+    p.x[l * C + c] = x;
+    p.loc[l * C + c] = loc;
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      p.L[(l * D + j) * C + c] = j <= l ? row[j] : 0.0f;
+  }
+  if (l == 0) {
+    p.pe[c] = pe;
+    p.map[c] = map;
+    p.lam[c] = lam;
+    p.as[c] = as_chg;
+  }
 }
 
 template <class P>
@@ -254,8 +402,11 @@ int launch(float* x, float* pe, float* map, float* loc, float* L, float* lam,
                  thinning, i0,        num_warmup, lr_decay, target_ap,
                  eps,      seed};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int blocks = (C + kThreads - 1) / kThreads;
-  arwmh_fused_kernel<P><<<blocks, kThreads, 0, stream>>>(p);
+  const int blocks = amt::blocks_for<P>(C);
+  if constexpr (P::kRows)
+    arwmh_rows_kernel<P><<<blocks, kThreads, 0, stream>>>(p);
+  else
+    arwmh_replicated_kernel<P><<<blocks, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -282,3 +433,4 @@ int launch(float* x, float* pe, float* map, float* loc, float* L, float* lam,
 AMT_ARWMH_FUSED_ENTRY(eight_schools_noncentered, amt::EightSchoolsNoncentered)
 AMT_ARWMH_FUSED_ENTRY(eight_schools_centered, amt::EightSchoolsCentered)
 AMT_ARWMH_FUSED_ENTRY(kidiq, amt::Kidiq)
+AMT_ARWMH_FUSED_ENTRY(diamonds_ss, amt::DiamondsSuffStats)

@@ -9,27 +9,14 @@
 // fused_asss_reference in adaptive_mcmc_tpu_torch/ops/cuda/asss_fused.py,
 // whose operation order this kernel follows.
 //
-// One launch advances every chain by n_steps ASSS transitions.  One thread
-// owns one chain and runs its own state machine until it has landed n_steps
-// times: no barrier between chains, so a chain's iteration index is its own
-// loop count.  Chain state: x and loc (d each), the lower half of the scale
-// factor S (d(d+1)/2 floats), pe, as_change; and the open transition: the
-// sphere point z and the great-circle velocity v (d + 1 each), the slice
-// level t, theta and its bracket, the trip count.  d = P::D is a template
-// parameter, so every loop over d unrolls and all indexing is static.
-//
-// Where the factor lives.  At d <= 16 everything is in registers (d = 10:
-// the 55-float factor, and in the landing branch the new factor for the NaN
-// guard; 235 registers and no spills at d = 10).  At d = 26 the factor is
-// 351 floats and the guard needs a second copy, which no thread's 255
-// registers hold, so both copies live in dynamic shared memory, chains
-// last: entry k of thread t's factor at [k][t], so a block's threads read
-// consecutive words, one per bank.  The landing writes the new factor
-// into the spare copy and, if it has no NaN, swaps the two pointers, so the
-// guard copies nothing.  x, loc, z and v stay in registers, and ptxas spills
-// what does not fit (PERF.md has its report).  A block holds 8 chains there,
-// not 32: 2 x 351 x 8 x 4 = 22,464 bytes of shared memory per block, and
-// 1024 chains spread over 128 SMs rather than 32.
+// One launch advances every chain by n_steps ASSS transitions.  Each chain
+// runs its own state machine until it has landed n_steps times: no barrier
+// between chains, so a chain's iteration index is its own loop count.
+// Chain state: x and loc (d each), the lower half of the scale factor S,
+// pe, as_change; and the open transition: the sphere point z and the
+// great-circle velocity v (d + 1 each), the slice level t, theta and its
+// bracket, the trip count.  d = P::D is a template parameter, so every loop
+// over d unrolls and all indexing is static.
 //
 // Iteration 0 opens the first transition (begin) and does nothing else.
 // Every later iteration:
@@ -52,34 +39,42 @@
 // from the stored potential, the tangent velocity, and theta = 2 pi u_theta
 // with the bracket [theta - 2 pi, theta].
 //
-// Bound: arithmetic latency and divergence, not bytes.  Each iteration is a
-// dependent chain of a few thousand instructions per thread (the potential,
-// the d(d+1)/2 inverse map; on landing the column recursion's divisions and
-// square roots, the projection and the Philox blocks of normals), and the
-// state is read and written once per launch.  A warp's threads land on
-// different iterations, so a warp runs both the landing and the shrinking
-// branch on most iterations; over a long call the iteration counts of a
-// warp's threads differ only by a short tail.  One warp per block (a
-// quarter warp at d = 26) spreads the chains over the SMs.  Build without
-// fast math: IEEE division and sqrt keep the NaN of an indefinite update,
-// and no FMA contraction keeps rounding equal to the plain version, so that
-// near-ties of the slice test fall the same way.
+// What bounds it: latency, not bytes or operations.  The state is read and
+// written once per launch; an iteration is a few thousand operations per
+// chain, but most of them depend on the one before (the potential's sums,
+// the inverse map, and on landing the column recursion's divisions and
+// square roots, the forward substitution, the Philox rounds), and the card
+// holds only a few warps per SM to hide that.  So the design shortens each
+// chain's dependent path by giving it a group of lanes (common.cuh):
+//   * d = 10 (eight schools): one thread per chain, everything in
+//     registers (55-float factor and its guard copy); 4096 chains are one
+//     warp per SM.
+//   * kidiq (d = 4): a group of 16 lanes, two chains per warp.  The state
+//     is replicated on every lane; the 434-term data sum runs as 14 lanes'
+//     running sums (its plain version's sum_strided order), met in lane
+//     order.  The serial sum of 434 terms becomes 31 per lane.
+//   * diamonds (d = 26): a warp per chain, lane i owning x_i, loc_i, z_i,
+//     v_i and row i of S (26 registers), lane 26 z_d and v_d.  The inverse
+//     map is a row per lane (x_j / pole broadcast by shuffles), the forward
+//     substitution and the rank-1 update go column by column with the
+//     column's scalars broadcast, the NaN guard is a warp vote, and the
+//     d-sums (nsq, dot, vv and the potential's) gather in lane order, which
+//     is the plain version's left-to-right order.  The 351-float factor
+//     and its guard copy fit no thread's registers; a lane holds two rows.
+// A warp's chains land on different iterations, so at d = 10 and kidiq a
+// warp runs both branches on most iterations; at d = 26 it never does.
+// Build without fast math: IEEE division and sqrt keep the NaN of an
+// indefinite update, and no FMA contraction keeps rounding equal to the
+// plain version, so that near-ties of the slice test fall the same way.
 
 #include "common.cuh"
 
-#include <type_traits>
-
 namespace {
 
+using amt::Group;
 using amt::tri;
 
 constexpr int kThreads = 32;
-// largest d whose factor stays in registers
-constexpr int kMaxRegisterD = 16;
-// chains per block where the factor lives in shared memory: a quarter
-// warp, so that the slice's 1024 chains make 128 blocks and reach 128 of
-// the 132 SMs instead of 32
-constexpr int kSmemThreads = 8;
 
 struct Params {
   float* x;      // (D, C)
@@ -114,6 +109,12 @@ struct Stream {
   uint2 key;
   uint32_t seed_hi;
 };
+
+__device__ __forceinline__ Stream stream_of(const Params& p, int c) {
+  return Stream{make_uint2(static_cast<uint32_t>(p.seed),
+                           static_cast<uint32_t>(c)),
+                static_cast<uint32_t>(p.seed >> 32)};
+}
 
 // (u_shrink, u_level, u_theta) of iteration it
 __device__ __forceinline__ void uniforms(const Params& p, int it, int c,
@@ -150,48 +151,25 @@ __device__ __forceinline__ void normals(const Params& p, int it, int c,
   }
 }
 
-// The packed lower half of a chain's factor: in registers ...
-template <int NL>
-struct RegFactor {
-  float e[NL];
-  __device__ __forceinline__ float get(int k) const { return e[k]; }
-  __device__ __forceinline__ void set(int k, float v) { e[k] = v; }
-};
-
-// ... or in shared memory, entry k of this thread's factor at
-// e[k * kSmemThreads]
-struct SmemFactor {
-  float* e;
-  __device__ __forceinline__ float get(int k) const {
-    return e[k * kSmemThreads];
+// normal i < N of iteration it alone (a row lane's own)
+template <int N>
+__device__ __forceinline__ float normal_at(const Params& p, int it, int c,
+                                           const Stream& st, int i) {
+  if (p.n01 != nullptr) {
+    if (i >= N) return 0.0f;
+    const size_t C = static_cast<size_t>(p.C);
+    const size_t row = static_cast<size_t>(min(it, p.n_rows - 1));
+    return p.n01[(row * N + i) * C + c];
   }
-  __device__ __forceinline__ void set(int k, float v) {
-    e[k * kSmemThreads] = v;
-  }
-};
-
-template <int D>
-using FactorOf = std::conditional_t<(D <= kMaxRegisterD),
-                                    RegFactor<D*(D + 1) / 2>, SmemFactor>;
-
-template <int D>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return D <= kMaxRegisterD
-             ? 0
-             : 2 * sizeof(float) * (D * (D + 1) / 2) * kSmemThreads;
-}
-
-// chains per block
-template <int D>
-constexpr int block_threads() {
-  return D <= kMaxRegisterD ? kThreads : kSmemThreads;
+  return amt::philox_normal_at(static_cast<uint32_t>(it), 1u, st.seed_hi,
+                               st.key, i);
 }
 
 // entry (i, j) of the whitening factor (S + eps I) sqrt(d)
-template <class F>
-__device__ __forceinline__ float sig(const F& S, int i, int j, float eps,
-                                     float sqrt_d) {
-  return (i == j ? S.get(tri(i, j)) + eps : S.get(tri(i, j))) * sqrt_d;
+template <int NL>
+__device__ __forceinline__ float sig(const float (&S)[NL], int i, int j,
+                                     float eps, float sqrt_d) {
+  return (i == j ? S[tri(i, j)] + eps : S[tri(i, j)]) * sqrt_d;
 }
 
 struct Slice {
@@ -201,15 +179,32 @@ struct Slice {
   float tmax;
 };
 
+__device__ __forceinline__ Slice slice_of(float pe_t, float ul, float ut) {
+  Slice s;
+  s.t = pe_t - logf(ul);
+  s.theta = ut * amt::kTwoPi;
+  s.tmin = s.theta - amt::kTwoPi;
+  s.tmax = s.theta;
+  return s;
+}
+
+__device__ __forceinline__ void shrink(Slice* sl, float us) {
+  if (sl->theta < 0.0f) sl->tmin = sl->theta;
+  if (sl->theta >= 0.0f) sl->tmax = sl->theta;
+  sl->theta = sl->tmin + us * (sl->tmax - sl->tmin);
+}
+
+// ---- replicated layout: every lane of the group holds the whole chain ----
+
 // Open a transition at (x, pe) under (loc, S): sphere point z, tangent
 // velocity v, slice level and bracket.
-template <int D, class F>
+template <int D>
 __device__ __forceinline__ Slice begin(const float (&n01)[D + 1], float ul,
                                        float ut, const float (&x)[D],
                                        float pe, const float (&loc)[D],
-                                       const F& S, float eps,
-                                       float sqrt_d, float (&z)[D + 1],
-                                       float (&v)[D + 1]) {
+                                       const float (&S)[D * (D + 1) / 2],
+                                       float eps, float sqrt_d,
+                                       float (&z)[D + 1], float (&v)[D + 1]) {
   // whitening by forward substitution, as the plain version's project_cl
   float ys[D], xr[D];
 #pragma unroll
@@ -241,47 +236,34 @@ __device__ __forceinline__ Slice begin(const float (&n01)[D + 1], float ul,
   const float nrm = sqrtf(vv);
 #pragma unroll
   for (int i = 0; i <= D; ++i) v[i] = v[i] / nrm;
-  Slice s;
-  s.t = pe_t - logf(ul);
-  s.theta = ut * amt::kTwoPi;
-  s.tmin = s.theta - amt::kTwoPi;
-  s.tmax = s.theta;
-  return s;
+  return slice_of(pe_t, ul, ut);
 }
 
 template <class P>
-__global__ void __launch_bounds__(kThreads) asss_fused_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads)
+    asss_replicated_kernel(const Params p) {
   constexpr int D = P::D;
   constexpr int NL = D * (D + 1) / 2;
-  using Factor = FactorOf<D>;
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  int c;
+  const Group<P::kLanes> g = amt::this_group<P::kLanes>(&c);
   if (c >= p.C) return;
+  const bool writer = g.lane == 0;
   const size_t C = static_cast<size_t>(p.C);
   const float eps = p.eps, sqrt_d = p.sqrt_d;
 
   typename P::Data data;
   P::load(p.data, p.n_data, &data);
 
-  // S and, for the shared-memory factor, the spare copy the guard writes
-  Factor S;
-  float* spare = nullptr;
-  if constexpr (smem_bytes<D>() > 0) {
-    extern __shared__ float smem[];
-    S.e = smem + threadIdx.x;
-    spare = smem + NL * kSmemThreads + threadIdx.x;
-  }
-  float x[D], loc[D];
+  float x[D], loc[D], S[NL];
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     x[i] = p.x[i * C + c];
     loc[i] = p.loc[i * C + c];
 #pragma unroll
-    for (int j = 0; j <= i; ++j) S.set(tri(i, j), p.S[(i * D + j) * C + c]);
+    for (int j = 0; j <= i; ++j) S[tri(i, j)] = p.S[(i * D + j) * C + c];
   }
   float pe = p.pe[c], as_chg = p.as[c];
-  const Stream st{make_uint2(static_cast<uint32_t>(p.seed),
-                             static_cast<uint32_t>(c)),
-                  static_cast<uint32_t>(p.seed >> 32)};
+  const Stream st = stream_of(p, c);
 
   float z[D + 1], v[D + 1];
   Slice sl{};
@@ -317,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) asss_fused_kernel(const Params p) {
         acc = acc + sig(S, i, j, eps, sqrt_d) * xb[j];
       xp[i] = acc;
     }
-    float u_prop = P::potential(xp, data);
+    float u_prop = P::potential(xp, data, g);
     if (isnan(u_prop)) u_prop = CUDART_INF_F;
 
     // 3. slice test and bail-out
@@ -332,13 +314,8 @@ __global__ void __launch_bounds__(kThreads) asss_fused_kernel(const Params p) {
       }
       // 4. adaptation on landing
       if (p.adapt) {
-        const int ig = p.i0 + done;
-        const int itr = ig + 1;
-        const float nf =
-            static_cast<float>(ig < p.num_warmup ? itr : itr - p.num_warmup);
-        const float gamma = p.lr_decay == 1.0f
-                                ? 1.0f / nf
-                                : expf(-p.lr_decay * logf(nf));
+        const float gamma =
+            amt::adapt_clock(p.i0 + done, p.num_warmup, p.lr_decay).y;
         float w[D], loc_new[D];
 #pragma unroll
         for (int i = 0; i < D; ++i) {
@@ -347,13 +324,12 @@ __global__ void __launch_bounds__(kThreads) asss_fused_kernel(const Params p) {
         }
         // rank-1 update of sqrt(1 - gamma) S by delta with coefficient gamma
         const float sq = sqrtf(1.0f - gamma);
-        Factor Sn;
-        if constexpr (smem_bytes<D>() > 0) Sn.e = spare;
+        float Sn[NL];
         float a = gamma;
         bool bad = false;
 #pragma unroll
         for (int j = 0; j < D; ++j) {
-          const float diag = sq * S.get(tri(j, j));
+          const float diag = sq * S[tri(j, j)];
           const float inv_diag = 1.0f / diag;
           const float Dj = diag * diag;
           const float pj = w[j];
@@ -366,11 +342,11 @@ __global__ void __launch_bounds__(kThreads) asss_fused_kernel(const Params p) {
           a = a * Dj * inv_Dj_new;
 #pragma unroll
           for (int i = j; i < D; ++i) {
-            const float col = sq * S.get(tri(i, j));
+            const float col = sq * S[tri(i, j)];
             w[i] = w[i] - s_w * col;
             const float val = s_col * col + s_new * w[i];
             bad = bad || isnan(val);
-            Sn.set(tri(i, j), val);
+            Sn[tri(i, j)] = val;
           }
         }
         float dl = 0.0f, ds = 0.0f;
@@ -383,20 +359,15 @@ __global__ void __launch_bounds__(kThreads) asss_fused_kernel(const Params p) {
         if (!bad) {
 #pragma unroll
           for (int k = 0; k < NL; ++k) {
-            const float dd = Sn.get(k) - S.get(k);
+            const float dd = Sn[k] - S[k];
             ds = ds + dd * dd;
-          }
-          if constexpr (smem_bytes<D>() > 0) {
-            spare = S.e;
-            S.e = Sn.e;
-          } else {
-            S = Sn;
+            S[k] = Sn[k];
           }
         }
         as_chg = sqrtf(dl) + sqrtf(ds);
       }
       ++done;
-      if (p.n_frames > 0 && done % p.thinning == 0) {
+      if (writer && p.n_frames > 0 && done % p.thinning == 0) {
         const int f = done / p.thinning - 1;
         if (f < p.n_frames) {
 #pragma unroll
@@ -413,41 +384,219 @@ __global__ void __launch_bounds__(kThreads) asss_fused_kernel(const Params p) {
       trips = 0;
     } else {
       // 5. shrink the bracket toward theta = 0 and redraw
-      if (sl.theta < 0.0f) sl.tmin = sl.theta;
-      if (sl.theta >= 0.0f) sl.tmax = sl.theta;
-      sl.theta = sl.tmin + us * (sl.tmax - sl.tmin);
+      shrink(&sl, us);
       ++trips;
     }
     ++it;
   }
 
+  if (!writer) return;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
     p.x[i * C + c] = x[i];
     p.loc[i * C + c] = loc[i];
 #pragma unroll
     for (int j = 0; j < D; ++j)
-      p.S[(i * D + j) * C + c] = j <= i ? S.get(tri(i, j)) : 0.0f;
+      p.S[(i * D + j) * C + c] = j <= i ? S[tri(i, j)] : 0.0f;
   }
   p.pe[c] = pe;
   p.as[c] = as_chg;
   p.iters[c] = it;
 }
 
-// the device potential alone at x (D, C) into out (C,): holds each policy
-// against its plain PyTorch version on the card
+// ---- rows layout: a warp per chain, lane i owning coordinate i ----------
+
+// begin with lane l < D holding x_l, loc_l and row l of S, its normal n
+// (lane l <= D); returns the slice and sets the lane's z and v (lane D the
+// last coordinate).  Same operations and order as begin above.
+template <int D>
+__device__ __forceinline__ Slice begin_rows(const Group<32>& g, float n,
+                                            float ul, float ut, float x,
+                                            float pe, float loc,
+                                            const float (&row)[D], float eps,
+                                            float sqrt_d, float* z,
+                                            float* v) {
+  const int l = g.lane;
+  float ys = x - loc, xr = 0.0f;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    if (l == k) xr = ys / ((row[k] + eps) * sqrt_d);
+    const float xrk = g.bcast(xr, k);
+    if (l > k && l < D) ys = ys - (row[k] * sqrt_d) * xrk;
+  }
+  const float nsq = amt::ordered_sum<D>(g, xr * xr);
+  const float np1 = nsq + 1.0f;
+  const float zd = (nsq - 1.0f) / np1;
+  *z = l < D ? (2.0f * xr) / np1 : (l == D ? zd : 0.0f);
+  const float pe_t = pe + static_cast<float>(D) * logf(1.0f - zd);
+  const float dot = amt::ordered_sum<D + 1>(g, n * *z);
+  *v = n - dot * *z;
+  const float vv = amt::ordered_sum<D + 1>(g, *v * *v);
+  const float nrm = sqrtf(vv);
+  *v = *v / nrm;
+  return slice_of(pe_t, ul, ut);
+}
+
+template <class P>
+__global__ void __launch_bounds__(kThreads) asss_rows_kernel(const Params p) {
+  constexpr int D = P::D;
+  static_assert(P::kLanes == 32 && D < 32,
+                "a warp per chain, lane D holding the last sphere coordinate");
+  int c;
+  const Group<32> g = amt::this_group<32>(&c);
+  if (c >= p.C) return;
+  const int l = g.lane;
+  const bool own = l < D;
+  const size_t C = static_cast<size_t>(p.C);
+  const float eps = p.eps, sqrt_d = p.sqrt_d;
+
+  typename P::RowData data;
+  P::load_row(p.data, p.n_data, l, &data);
+
+  float x = 0.0f, loc = 0.0f, row[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) row[j] = 0.0f;
+  if (own) {
+    x = p.x[l * C + c];
+    loc = p.loc[l * C + c];
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      if (j <= l) row[j] = p.S[(l * D + j) * C + c];
+  }
+  float pe = p.pe[c], as_chg = p.as[c];
+  const Stream st = stream_of(p, c);
+
+  float z = 0.0f, v = 0.0f;
+  Slice sl{};
+  int it = 0, trips = 0, done = 0;
+  if (p.n_steps > 0) {
+    float us, ul, ut;
+    uniforms(p, 0, c, st, &us, &ul, &ut);
+    const float n = normal_at<D + 1>(p, 0, c, st, l);
+    sl = begin_rows<D>(g, n, ul, ut, x, pe, loc, row, eps, sqrt_d, &z, &v);
+    it = 1;
+  }
+
+  while (done < p.n_steps) {
+    float us, ul, ut;
+    uniforms(p, it, c, st, &us, &ul, &ut);
+
+    // 2. the potential at the inverse map of z cos(theta) + v sin(theta):
+    // lane i sums row i of the factor against xb_j broadcast from lane j
+    const float cs = cosf(sl.theta), sn = sinf(sl.theta);
+    const float zt = z * cs + v * sn;
+    const float pole = 1.0f - g.bcast(zt, D);
+    const float xb = zt / pole;
+    float xp = loc;
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const float xbj = g.bcast(xb, j);
+      if (j <= l && own)
+        xp = xp + ((l == j ? row[j] + eps : row[j]) * sqrt_d) * xbj;
+    }
+    float u_prop = P::potential_rows(g, xp, data);
+    if (isnan(u_prop)) u_prop = CUDART_INF_F;
+
+    // 3. slice test and bail-out (every lane holds the same values)
+    const bool good =
+        (u_prop + static_cast<float>(D) * logf(pole) <= sl.t) && (pole >= eps);
+    const bool bail = trips >= p.max_trips;
+    if (good || bail) {
+      if (!bail) {
+        x = xp;
+        pe = u_prop;
+      }
+      // 4. adaptation on landing
+      if (p.adapt) {
+        const float gamma =
+            amt::adapt_clock(p.i0 + done, p.num_warmup, p.lr_decay).y;
+        const float w = x - loc;
+        const float loc_new = loc + gamma * w;
+        float rown[D];
+        const bool bad =
+            amt::rank1_rows<D>(g, row, w, gamma, sqrtf(1.0f - gamma), rown);
+        // the sums of squares over lanes: the plain version's torch.sum
+        // has an order of its own, and as_change feeds nothing back
+        const float dd = loc_new - loc;
+        const float dl = g.xor_sum(own ? dd * dd : 0.0f);
+        loc = loc_new;
+        float ds = 0.0f;
+        if (!bad) {
+          float part = 0.0f;
+#pragma unroll
+          for (int j = 0; j < D; ++j) {
+            const float e = rown[j] - row[j];
+            part = part + e * e;
+            row[j] = rown[j];
+          }
+          ds = g.xor_sum(own ? part : 0.0f);
+        }
+        as_chg = sqrtf(dl) + sqrtf(ds);
+      }
+      ++done;
+      if (p.n_frames > 0 && done % p.thinning == 0) {
+        const int f = done / p.thinning - 1;
+        if (f < p.n_frames) {
+          if (own) p.fx[(f * D + l) * C + c] = x;
+          if (l == 0) {
+            p.fpe[f * C + c] = pe;
+            p.fas[f * C + c] = as_chg;
+          }
+        }
+      }
+      if (done < p.n_steps) {
+        const float n = normal_at<D + 1>(p, it, c, st, l);
+        sl = begin_rows<D>(g, n, ul, ut, x, pe, loc, row, eps, sqrt_d, &z,
+                           &v);
+      }
+      trips = 0;
+    } else {
+      // 5. shrink the bracket toward theta = 0 and redraw
+      shrink(&sl, us);
+      ++trips;
+    }
+    ++it;
+  }
+
+  if (own) {
+    p.x[l * C + c] = x;
+    p.loc[l * C + c] = loc;
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      p.S[(l * D + j) * C + c] = j <= l ? row[j] : 0.0f;
+  }
+  if (l == 0) {
+    p.pe[c] = pe;
+    p.as[c] = as_chg;
+    p.iters[c] = it;
+  }
+}
+
+// The device potential alone at x (D, C) into out (C,), one group per
+// chain: holds each policy against its plain PyTorch version on the card.
 template <class P>
 __global__ void __launch_bounds__(kThreads)
-    potential_kernel(const float* x, float* out, const float* raw, int n_data,
-                     int C) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+    potential_kernel(const float* x, float* out, const float* raw,
+                     int n_data, int C) {
+  int c;
+  const Group<P::kLanes> g = amt::this_group<P::kLanes>(&c);
   if (c >= C) return;
-  typename P::Data data;
-  P::load(raw, n_data, &data);
-  float xc[P::D];
+  const size_t Cs = static_cast<size_t>(C);
+  float u;
+  if constexpr (P::kRows) {
+    typename P::RowData data;
+    P::load_row(raw, n_data, g.lane, &data);
+    const float xl = g.lane < P::D ? x[g.lane * Cs + c] : 0.0f;
+    u = P::potential_rows(g, xl, data);
+  } else {
+    typename P::Data data;
+    P::load(raw, n_data, &data);
+    float xc[P::D];
 #pragma unroll
-  for (int i = 0; i < P::D; ++i) xc[i] = x[static_cast<size_t>(i) * C + c];
-  out[c] = P::potential(xc, data);
+    for (int i = 0; i < P::D; ++i) xc[i] = x[i * Cs + c];
+    u = P::potential(xc, data, g);
+  }
+  if (g.lane == 0) out[c] = u;
 }
 
 template <class P>
@@ -465,10 +614,6 @@ int launch(float* x, float* pe, float* loc, float* S, float* as_change,
       (unif3 != nullptr && n_rows < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0 || n_steps == 0) return static_cast<int>(cudaGetLastError());
-  constexpr size_t kSmem = smem_bytes<P::D>();
-  static_assert(kSmem <= 48 * 1024,
-                "above 48 KB the launch must raise the kernel's dynamic "
-                "shared memory limit first");
   const Params p{x,         pe,       loc,      S,        as_change,
                  iters,     data,     n_data,   unif3,    n01,
                  fx,        fpe,      fas,      C,        n_rows,
@@ -476,9 +621,11 @@ int launch(float* x, float* pe, float* loc, float* S, float* as_change,
                  max_trips, adapt,    lr_decay, eps,      sqrt_d,
                  seed};
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  constexpr int kBlock = block_threads<P::D>();
-  const int blocks = (C + kBlock - 1) / kBlock;
-  asss_fused_kernel<P><<<blocks, kBlock, kSmem, stream>>>(p);
+  const int blocks = amt::blocks_for<P>(C);
+  if constexpr (P::kRows)
+    asss_rows_kernel<P><<<blocks, kThreads, 0, stream>>>(p);
+  else
+    asss_replicated_kernel<P><<<blocks, kThreads, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -489,9 +636,8 @@ int launch_potential(const float* x, float* out, const float* data,
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int blocks = (C + kThreads - 1) / kThreads;
-  potential_kernel<P><<<blocks, kThreads, 0, stream>>>(x, out, data, n_data,
-                                                       C);
+  potential_kernel<P><<<amt::blocks_for<P>(C), kThreads, 0, stream>>>(
+      x, out, data, n_data, C);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,6 +32,8 @@
 // Bound: memory.  Per chain the kernel reads d(d+1)/2 + d + 1 floats and
 // writes d^2, against about 3d^2 flops, far below the H100's
 // flop-per-byte balance; the design's only lever is coalesced traffic.
+// On an H100 it takes several times that byte bound at (4096, 10) (PERF.md
+// section 6): one thread per chain runs the d columns in sequence.
 
 #include <cuda_runtime.h>
 

@@ -1,17 +1,30 @@
 // Device helpers shared by the fused sweeps K2 (arwmh_fused.cu) and K3
 // (asss_fused.cu): the counter-based Philox4x32-10 generator, its uniform
-// and Box-Muller normal transforms, and the target potentials.  One copy,
-// so that both kernels draw and round alike.
+// and Box-Muller normal transforms, the lane groups that run one chain
+// together, the target potentials, and the rank-1 factor update of a
+// factor held one row per lane.  One copy, so that both kernels draw and
+// round alike.
 //
-// A potential is a policy struct P: its dimension P::D, the float count of
-// its flat data P::data_ok(n_data), the per-thread view of that data
-// P::Data filled by P::load(data, n_data, &view), and
-// P::potential(x, view), the negative log density at x[D].  The data is the
-// target's data["kernel_data"] (models/targets.py), one array that every
-// thread reads at the same addresses.  Each potential follows its plain
-// PyTorch version's operation order one rounding at a time, built without
-// FMA contraction; a Python constant is folded here in double in the order
-// Python folds it, then rounded to float as PyTorch rounds a Python scalar.
+// A chain runs on a group of P::kLanes lanes of one warp (Group below), in
+// one of two layouts:
+//   * replicated (P::kRows false): every lane of the group holds the whole
+//     chain state and runs the same arithmetic; only the potential splits
+//     its work across the lanes (kidiq's data sum), and lane 0 writes.
+//     With kLanes = 1 this is one thread per chain (eight schools).
+//     P::Data, filled by P::load(data, n_data, &view), and
+//     P::potential(x[D], view, group), the negative log density at x;
+//   * rows (P::kRows true, kLanes = 32): lane i < D owns coordinate i and
+//     row i of the d x d factor, lane D the last sphere coordinate of K3.
+//     P::RowData, filled by P::load_row(data, n_data, lane, &view), and
+//     P::potential_rows(group, x_lane, view), which every lane returns.
+// D is P::D, the float count of the flat data is checked by
+// P::data_ok(n_data).  The data is the target's data["kernel_data"]
+// (models/targets.py).  Each potential follows its plain PyTorch version's
+// operation order one rounding at a time, built without FMA contraction;
+// a cross-lane sum that the plain version takes left to right is gathered
+// in lane order (ordered_sum).  A Python constant is folded here in double
+// in the order Python folds it, then rounded to float as PyTorch rounds a
+// Python scalar.
 
 #pragma once
 
@@ -100,6 +113,137 @@ __device__ __forceinline__ void philox_normals(uint32_t ctr,
   }
 }
 
+// Normal i of philox_normals alone, bit for bit: a lane of a row group
+// draws its own coordinate's normal (block first_block + i / 4).
+__device__ __forceinline__ float philox_normal_at(uint32_t ctr,
+                                                  uint32_t first_block,
+                                                  uint32_t seed_hi,
+                                                  uint2 key, int i) {
+  const uint4 r = philox4x32_10(
+      make_uint4(ctr, first_block + static_cast<uint32_t>(i / 4), seed_hi,
+                 0u),
+      key);
+  float n0, n1;
+  if ((i & 3) < 2) {
+    box_muller(r.x, r.y, &n0, &n1);
+  } else {
+    box_muller(r.z, r.w, &n0, &n1);
+  }
+  return (i & 1) ? n1 : n0;
+}
+
+// ---- lane groups -----------------------------------------------------------
+
+// The G lanes of one warp that run one chain (G divides 32).  A group's
+// lanes follow one control flow: every branch reads values that all of them
+// hold alike.
+template <int G>
+struct Group {
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8 || G == 16 || G == 32,
+                "a group is a power-of-two slice of a warp");
+  int lane;       // 0 .. G - 1
+  unsigned mask;  // the group's lanes within the warp
+
+  // v of lane src, to every lane of the group
+  __device__ __forceinline__ float bcast(float v, int src) const {
+    if constexpr (G == 1) return v;
+    else return __shfl_sync(mask, v, src, G);
+  }
+  // whether b holds on any lane of the group
+  __device__ __forceinline__ bool any(bool b) const {
+    if constexpr (G == 1) return b;
+    else return __any_sync(mask, b) != 0;
+  }
+  // the sum over the group's lanes by an xor butterfly: every lane gets
+  // the same bits (each level adds the same two values in either order)
+  __device__ __forceinline__ float xor_sum(float v) const {
+#pragma unroll
+    for (int o = G / 2; o > 0; o >>= 1)
+      v = v + __shfl_xor_sync(mask, v, o, G);
+    return v;
+  }
+};
+
+// the group of the calling thread and its chain's index
+template <int G>
+__device__ __forceinline__ Group<G> this_group(int* chain) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  *chain = t / G;
+  Group<G> g;
+  g.lane = t % G;
+  const int first = (threadIdx.x % 32) / G * G;
+  g.mask = G == 32 ? 0xffffffffu : ((1u << G) - 1u) << first;
+  return g;
+}
+
+// v of lanes first, first + 1, ..., first + N - 1 summed left to right, on
+// every lane: the order of the plain version's sum_in_order
+template <int N, int G>
+__device__ __forceinline__ float ordered_sum(const Group<G>& g, float v,
+                                             int first = 0) {
+  float s = g.bcast(v, first);
+#pragma unroll
+  for (int k = 1; k < N; ++k) s = s + g.bcast(v, first + k);
+  return s;
+}
+
+// ---- the adaptation clock --------------------------------------------------
+
+// (n as float, gamma = n^-lr_decay) of global step i (0-based), n restarted
+// after warm-up; gamma as exp(-r log n), or 1 / n at r = 1
+__device__ __forceinline__ float2 adapt_clock(int i, int num_warmup,
+                                              float lr_decay) {
+  const int itr = i + 1;
+  const float nf = static_cast<float>(i < num_warmup ? itr : itr - num_warmup);
+  const float gamma =
+      lr_decay == 1.0f ? 1.0f / nf : expf(-lr_decay * logf(nf));
+  return make_float2(nf, gamma);
+}
+
+// ---- the rank-1 update, one row per lane ----------------------------------
+
+// GGMS74-C1 update of sqrt(1 - gamma) S by w with coefficient gamma, for a
+// factor held one row per lane: lane l < D holds row l of S (row[j], j <=
+// l) and w_l.  Column j runs on every lane: lane j's S_jj and w_j are
+// broadcast, every lane computes the column's scalars alike, and lane
+// i >= j updates its entry and w_i.  Each element's operations and their
+// order are those of chol_update_cl_reference (and of the one-thread
+// loop).  Writes the new row to out (zeros above the diagonal) and returns
+// whether any entry of the group's new factor is NaN (the caller then keeps
+// the old factor).
+template <int D>
+__device__ __forceinline__ bool rank1_rows(const Group<32>& g,
+                                           const float (&row)[D], float w,
+                                           float gamma, float sq,
+                                           float (&out)[D]) {
+  const int l = g.lane;
+  float a = gamma;
+  bool bad = false;
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float diag = sq * g.bcast(row[j], j);
+    const float pj = g.bcast(w, j);
+    const float inv_diag = 1.0f / diag;
+    const float Dj = diag * diag;
+    const float Dj_new = Dj + a * pj * pj;
+    const float inv_Dj_new = 1.0f / Dj_new;
+    const float sqrt_Dj_new = sqrtf(Dj_new);
+    const float s_w = pj * inv_diag;
+    const float s_col = sqrt_Dj_new * inv_diag;
+    const float s_new = (pj * a) * inv_Dj_new * sqrt_Dj_new;
+    a = a * Dj * inv_Dj_new;
+    out[j] = 0.0f;
+    if (l >= j && l < D) {
+      const float col = sq * row[j];
+      w = w - s_w * col;
+      const float val = s_col * col + s_new * w;
+      bad = bad || isnan(val);
+      out[j] = val;
+    }
+  }
+  return g.any(bad);
+}
+
 // ---- eight-schools noncentered potential ---------------------------------
 // Same operation order as models/targets.py (and models/base.py):
 //   lp  = normal_logpdf(mu, 0, 5)
@@ -162,15 +306,19 @@ __device__ __forceinline__ void load_eight_schools(const float* data,
   }
 }
 
-// eight schools noncentered, [mu, log tau, theta_base(8)]; data [y, sigma]
+// eight schools noncentered, [mu, log tau, theta_base(8)]; data [y, sigma].
+// One thread per chain.
 struct EightSchoolsNoncentered {
   static constexpr int D = EightSchoolsData::J + 2;
+  static constexpr int kLanes = 1;
+  static constexpr bool kRows = false;
   using Data = EightSchoolsData;
   static bool data_ok(int n) { return n == 2 * Data::J; }
   __device__ static void load(const float* data, int, Data* v) {
     load_eight_schools(data, v);
   }
-  __device__ static float potential(const float (&x)[D], const Data& v) {
+  __device__ static float potential(const float (&x)[D], const Data& v,
+                                    const Group<kLanes>&) {
     return eight_schools_potential<Data::J>(x, v.y, v.sigma, v.log_sigma);
   }
 };
@@ -183,12 +331,15 @@ struct EightSchoolsNoncentered {
 //   lp += sum normal_logpdf(y, theta, sigma)
 struct EightSchoolsCentered {
   static constexpr int D = EightSchoolsData::J + 2;
+  static constexpr int kLanes = 1;
+  static constexpr bool kRows = false;
   using Data = EightSchoolsData;
   static bool data_ok(int n) { return n == 2 * Data::J; }
   __device__ static void load(const float* data, int, Data* v) {
     load_eight_schools(data, v);
   }
-  __device__ static float potential(const float (&x)[D], const Data& v) {
+  __device__ static float potential(const float (&x)[D], const Data& v,
+                                    const Group<kLanes>&) {
     constexpr int J = Data::J;
     const float mu = x[0], log_tau = x[1];
     const float tau = expf(log_tau);
@@ -219,7 +370,9 @@ struct EightSchoolsCentered {
 // kidiq, [beta(3), log sigma]; data [kid_score(N), mom_hs(N), mom_iq(N)],
 // read through the pointer (3 N floats at N = 434).  The N-term sum runs as
 // kKidiqLanes running sums, term n into sum n mod kKidiqLanes, then those
-// left to right: models/base.py sum_strided with KIDIQ_LANES.  Order of
+// left to right: models/base.py sum_strided with KIDIQ_LANES.  Lane j <
+// kKidiqLanes of the chain's group runs sum j, and the sums meet in lane
+// order; the d = 4 state is replicated on every lane.  Order of
 // models/targets.py kidiq:
 //   lp  = half_cauchy_logpdf(sigma, 2.5) + log_sigma
 //   mu  = (beta0 + beta1 mom_hs) + beta2 mom_iq
@@ -227,6 +380,11 @@ struct EightSchoolsCentered {
 constexpr int kKidiqLanes = 14;
 struct Kidiq {
   static constexpr int D = 4;
+  // lanes per chain: two chains per warp (faster than 32 on an H100,
+  // PERF.md)
+  static constexpr int kLanes = 16;
+  static constexpr bool kRows = false;
+  static_assert(kLanes >= kKidiqLanes, "one lane per running sum");
   struct Data {
     const float* ks;
     const float* hs;
@@ -240,55 +398,57 @@ struct Kidiq {
     v->hs = data + v->n;
     v->iq = data + 2 * v->n;
   }
-  __device__ static float potential(const float (&x)[D], const Data& v) {
+  __device__ static float potential(const float (&x)[D], const Data& v,
+                                    const Group<kLanes>& g) {
     const float b0 = x[0], b1 = x[1], b2 = x[2], log_sigma = x[3];
     const float sigma = expf(log_sigma);
     const float zc = sigma * (1.0f / 2.5f);
     const float lp = (kHalfCauchy2p5 - log1pf(zc * zc)) + log_sigma;
     const float log_scale = logf(sigma);
-    float acc[kKidiqLanes];
-#pragma unroll
-    for (int j = 0; j < kKidiqLanes; ++j) acc[j] = 0.0f;
-    for (int n0 = 0; n0 < v.n; n0 += kKidiqLanes) {
-#pragma unroll
-      for (int j = 0; j < kKidiqLanes; ++j) {
-        const int n = n0 + j;
-        if (n < v.n) {
-          const float mu = (b0 + b1 * __ldg(v.hs + n)) + b2 * __ldg(v.iq + n);
-          const float z = (__ldg(v.ks + n) - mu) / sigma;
-          acc[j] = acc[j] + (-0.5f * (z * z + kLog2Pi) - log_scale);
-        }
+    float acc = 0.0f;
+    if (g.lane < kKidiqLanes) {
+      for (int n = g.lane; n < v.n; n += kKidiqLanes) {
+        const float mu = (b0 + b1 * __ldg(v.hs + n)) + b2 * __ldg(v.iq + n);
+        const float z = (__ldg(v.ks + n) - mu) / sigma;
+        acc = acc + (-0.5f * (z * z + kLog2Pi) - log_scale);
       }
     }
-    float s = acc[0];
-#pragma unroll
-    for (int j = 1; j < kKidiqLanes; ++j) s = s + acc[j];
-    return -(lp + s);
+    return -(lp + ordered_sum<kKidiqLanes>(g, acc));
   }
 };
 
 // diamonds in its sufficient-statistic form, [Intercept, b(24), log sigma];
-// data [Lᵀ (24 x 24, row-major, upper triangular), b̂(24), SSE_min, N, Ȳ]
-// read through the pointer.  Order of models/targets.py diamonds:
+// data [Lᵀ (24 x 24, row-major, upper triangular), b̂(24), SSE_min, N, Ȳ].
+// One warp per chain, lane i holding x_i.  Lane m = 1 .. 24 also holds
+// coefficient m - 1: row m - 1 of Lᵀ and b̂_{m-1}, in registers, so that it
+// computes r_{m-1} = b_{m-1} - b̂_{m-1} and u_{m-1}.  Order of
+// models/targets.py diamonds:
 //   lp  = student_t_logpdf(a, 3, 8, 10)
-//   lp += sum normal_logpdf(b)
+//   lp += sum normal_logpdf(b)                     (lanes 1 .. 24 in order)
 //   lp += folded_student_t_logpdf(sigma, 3, 0, 10) + log_sigma
-//   u_i = sum_{j >= i} Lᵀ_ij (b_j - b̂_j)   (the plain version also adds
-//         the exact zeros of j < i first)
-//   SSE = (SSE_min + (N da) da) + sum u_i², da = a - Ȳ
+//   u_i = sum_{j >= i} Lᵀ_ij r_j   (r_j broadcast from lane j + 1; the
+//         plain version also adds the exact zeros of j < i first)
+//   SSE = (SSE_min + (N da) da) + sum u_i², da = a - Ȳ  (lanes in order)
 //   lp += (-N / 2)(log 2 pi + 2 log_sigma) - (SSE / 2) / sigma²
 struct DiamondsSuffStats {
   static constexpr int Kc = 24;
   static constexpr int D = Kc + 2;
-  struct Data {
-    const float* lt;
-    const float* b_hat;
+  static constexpr int kLanes = 32;
+  static constexpr bool kRows = true;
+  struct RowData {
+    float lt[Kc];  // row lane - 1 of Lᵀ (zeros left of the diagonal)
+    float b_hat;
     float sse_min, n, y_bar;
   };
   static bool data_ok(int n) { return n == Kc * Kc + Kc + 3; }
-  __device__ static void load(const float* data, int, Data* v) {
-    v->lt = data;
-    v->b_hat = data + Kc * Kc;
+  __device__ static void load_row(const float* data, int, int lane,
+                                  RowData* v) {
+    const int i = lane - 1;
+    const bool coef = i >= 0 && i < Kc;
+#pragma unroll
+    for (int j = 0; j < Kc; ++j)
+      v->lt[j] = coef && j >= i ? data[i * Kc + j] : 0.0f;
+    v->b_hat = coef ? data[Kc * Kc + i] : 0.0f;
     v->sse_min = data[Kc * Kc + Kc];
     v->n = data[Kc * Kc + Kc + 1];
     v->y_bar = data[Kc * Kc + Kc + 2];
@@ -298,32 +458,27 @@ struct DiamondsSuffStats {
     const float z = (x - loc) * (1.0f / 10.0f);
     return kStudentT3Scale10 - 2.0f * log1pf((z * z) * (1.0f / 3.0f));
   }
-  __device__ static float potential(const float (&x)[D], const Data& v) {
-    const float a = x[0], log_sigma = x[D - 1];
+  __device__ static float potential_rows(const Group<kLanes>& g, float x,
+                                         const RowData& v) {
+    const float a = g.bcast(x, 0), log_sigma = g.bcast(x, D - 1);
     const float sigma = expf(log_sigma);
     float lp = student_t3_10(a, 8.0f);
-    float sb = 0.0f;
-#pragma unroll
-    for (int k = 0; k < Kc; ++k) {
-      const float z = (x[1 + k] - 0.0f) * 1.0f;
-      const float term = -0.5f * (z * z + kLog2Pi) - 0.0f;
-      sb = k == 0 ? term : sb + term;
-    }
-    lp = lp + sb;
+    const float z = (x - 0.0f) * 1.0f;
+    const float term = -0.5f * (z * z + kLog2Pi) - 0.0f;
+    lp = lp + ordered_sum<Kc>(g, term, 1);
     const float folded =
         logaddexp(student_t3_10(sigma, 0.0f), student_t3_10(-sigma, 0.0f));
     lp = lp + (folded + log_sigma);
-    float r[Kc];
+    const float r = x - v.b_hat;
+    const int i = g.lane - 1;
+    float u = 0.0f;
 #pragma unroll
-    for (int j = 0; j < Kc; ++j) r[j] = x[1 + j] - __ldg(v.b_hat + j);
-    float uu = 0.0f;
-#pragma unroll
-    for (int i = 0; i < Kc; ++i) {
-      float u = __ldg(v.lt + i * Kc + i) * r[i];
-#pragma unroll
-      for (int j = i + 1; j < Kc; ++j) u = u + __ldg(v.lt + i * Kc + j) * r[j];
-      uu = i == 0 ? u * u : uu + u * u;
+    for (int j = 0; j < Kc; ++j) {
+      const float rj = g.bcast(r, j + 1);
+      if (j == i) u = v.lt[j] * rj;
+      if (j > i) u = u + v.lt[j] * rj;
     }
+    const float uu = ordered_sum<Kc>(g, u * u, 1);
     const float da = a - v.y_bar;
     const float sse = (v.sse_min + (v.n * da) * da) + uu;
     lp = lp + ((-0.5f * v.n) * (kLog2Pi + 2.0f * log_sigma) -
@@ -335,6 +490,13 @@ struct DiamondsSuffStats {
 // packed lower-triangular index (i >= j), row-major
 __host__ __device__ constexpr int tri(int i, int j) {
   return i * (i + 1) / 2 + j;
+}
+
+// blocks of 32 threads for C chains of P
+template <class P>
+constexpr int blocks_for(int C) {
+  return static_cast<int>(
+      (static_cast<long long>(C) * P::kLanes + 31) / 32);
 }
 
 }  // namespace amt

@@ -11,11 +11,10 @@ wrapper runs for CPU tensors, and a launch counter:
 # the tag a target builder sets (Target.device_potential) when its
 # potential_fn is exactly that device function.  A target name alone does
 # not say which potential is computed: diamonds(suff_stats=False) has the
-# name of the sufficient-statistic form but no device twin.  K2 keeps its
-# factor in registers, so it takes d <= 16 only (no diamonds, d = 26).
+# name of the sufficient-statistic form but no device twin.
 DEVICE_POTENTIALS = {
     "fused ARWMH": ("eight_schools_noncentered", "eight_schools_centered",
-                    "kidiq"),
+                    "kidiq", "diamonds_ss"),
     "fused ASSS": ("eight_schools_noncentered", "eight_schools_centered",
                    "kidiq", "diamonds_ss"),
 }

@@ -4,7 +4,9 @@ Replaces the Pallas kernel built by ``build_fused_arwmh`` in
 ``adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py`` (body ``_make_kernel`` /
 ``_one_step``): ``n_steps`` whole ARWMH transitions in one launch with the
 chain state on chip, thinned frames streamed out.  The CUDA source is
-``csrc/arwmh_fused.cu`` (one thread per chain, state in registers).
+``csrc/arwmh_fused.cu``: the state in registers, one thread per chain at
+d = 10, 16 lanes per kidiq chain, a warp per diamonds chain (a row of the
+factor per lane).
 
 ``build_fused_arwmh(target, config)`` returns
 ``drive(state, n_steps, n_frames=0, thinning=1, generator=None, noise=None,
@@ -20,9 +22,9 @@ Philox4x32-10 seeded from ``generator``, and the plain version draws from
 ``generator`` directly: the two agree in distribution, not bitwise.
 
 The kernel has one entry point ``arwmh_fused_<tag>`` per device potential
-it is built for (eight schools noncentered and centered, kidiq: d <= 16);
-``build_fused_arwmh`` raises ``NotImplementedError`` for any other target,
-diamonds (d = 26) included.  Dispatch depends on the state's device alone:
+(eight schools noncentered and centered, kidiq, diamonds in its
+sufficient-statistic form); ``build_fused_arwmh`` raises
+``NotImplementedError`` for any other target.  Dispatch depends on the state's device alone:
 CPU tensors run :func:`fused_arwmh_reference`, CUDA tensors launch the
 kernel or raise.  ``launches`` counts kernel launches.
 """

@@ -4,11 +4,12 @@ Replaces the Pallas kernel built by ``build_fused_asss`` in
 ``adaptive_mcmc_tpu/ops/pallas/asss_fused.py`` (body ``_make_kernel``):
 every chain runs its own slice-sampling state machine for ``n_steps``
 transitions in one launch, and thinned frames stream out as each chain
-lands them.  The CUDA source is ``csrc/asss_fused.cu`` (one thread per
-chain; the factor in registers up to d = 16, in shared memory at d = 26),
-one entry point ``asss_fused_<tag>`` per device potential: eight schools
-noncentered and centered, kidiq, and diamonds in its sufficient-statistic
-form (``Target.device_potential``).
+lands them.  The CUDA source is ``csrc/asss_fused.cu``, one entry point
+``asss_fused_<tag>`` per device potential (``Target.device_potential``):
+eight schools noncentered and centered (one thread per chain), kidiq (16
+lanes per chain, the data sum split across them) and diamonds in its
+sufficient-statistic form (a warp per chain, a row of the factor per
+lane).
 
 ``build_fused_asss(target, config)`` returns ``drive(state, n_steps,
 n_frames=0, thinning=1, generator=None, unif3=None, n01=None,

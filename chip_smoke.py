@@ -6,8 +6,8 @@ GPU and check it.
 
 Needs one CUDA card and nvcc; builds the three kernel sources from csrc/ at
 the start, one nvcc process each, all at once.  K2 and K3 have one
-instantiation per device potential (csrc/common.cuh): K2 for eight schools
-noncentered and centered and kidiq, K3 for those and diamonds (d = 26).
+instantiation per device potential (csrc/common.cuh): eight schools
+noncentered and centered (d = 10), kidiq (d = 4) and diamonds (d = 26).
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and CUDA
@@ -16,11 +16,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. K1 (csrc/chol_update.cu) against its plain PyTorch version on the card at
    (C, d) = (4096, 10), (1024, 26), (37, 5) and every d from 1 to 32, the
    NaN of an indefinite downdate, strict triangularity; card times of
-   kernel and plain version at (4096, 10) (CUDA events around CUDA-graph
+   kernel, plain version and torch.linalg.cholesky_ex of the re-formed
+   L Lᵀ + coef v vᵀ at (4096, 10) (CUDA events around CUDA-graph
    replays);
 3. K2 (csrc/arwmh_fused.cu), each instantiation against its plain version
    on injected draws, 16 steps with frames: eight schools noncentered and
-   centered at (4096, 10), kidiq at (4096, 4); times of both;
+   centered at (4096, 10), kidiq at (4096, 4), diamonds at (1024, 26);
+   times of both;
 4. K3 (csrc/asss_fused.cu), each instantiation against its plain version
    on injected draws, 16 steps with 4 frames at thinning 4: every field
    and frame, and each chain's iteration count exactly: eight schools
@@ -36,15 +38,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    long step_n; then the lockstep step and the pipelined step_n (both
    through K1) for 500 + 1500 steps from fresh positions under the adapted
    scale of the K3 run;
-7. the slice: MCMC(asss(diamonds(), ASSSConfig(fused=True))) at 1024
-   chains through K3, against the PosteriorDB gold draws; kidiq through K3
-   and K2 at 4096 chains, against the float64 OLS fit; centered eight
-   schools through K3 and K2 (finite draws: its funnel makes a short
-   posterior gate unreliable);
+7. the slice: MCMC(asss(diamonds(), ASSSConfig(fused=True))) and
+   MCMC(arwmh(diamonds(), ARWMHConfig(fused=True))) at 1024 chains through
+   K3 and K2, against the PosteriorDB gold draws; kidiq through K3 and K2
+   at 4096 chains, against the float64 OLS fit; centered eight schools
+   through K3 and K2 (finite draws: its funnel makes a short posterior
+   gate unreliable);
    every path: posterior checks, launch counts (all counts set to 0 just
    before the path and read just after it) and chain-iters/s;
-8. one JSON line of kernel results, one entry per instantiation, then the
-   contract line last.
+8. one JSON line of kernel results, one entry per instantiation (with its
+   bound: the larger of the bytes it must move over 3.35 TB/s and its
+   float operations over 67 TFLOP/s, counted from the check's inputs and,
+   for K3, its iteration counts), then the contract line last.
 """
 
 import dataclasses
@@ -68,6 +73,9 @@ KERNELS = ("chol_update", "arwmh_fused", "asss_fused")
 # on the CPU (64 chains, pipelined driver), which needed 200000 warmup
 # steps before the gold bands held (PERF.md)
 SLICE_CHAINS, SLICE_WARMUP, SLICE_SAMPLES = 1024, 300000, 50000
+# ARWMH on diamonds through K2, sized from the JAX package's ARWMH on the
+# CPU (64 chains, scripts/size_arwmh_diamonds.py; PERF.md)
+ARWMH_DIAMONDS_WARMUP, ARWMH_DIAMONDS_SAMPLES = 1000000, 50000
 DIAMONDS_MAX_MEAN_ERR = 0.3            # max_k |mean_k - gold_k| / gold_sd_k
 DIAMONDS_SD_RATIO = (0.7, 1.4)         # sampled sd / gold sd, every k
 KIDIQ_WARMUP, KIDIQ_SAMPLES = 5000, 10000
@@ -78,8 +86,29 @@ KIDIQ_LOG_SIGMA_SD = 0.035
 # the TPU kernels the instantiations replace
 K2_REPLACES = "adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426"
 K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
-K2_TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq")
-K3_TARGETS = K2_TARGETS + ("diamonds",)
+K1_REPLACES = "adaptive_mcmc_tpu/ops/pallas/chol_update.py:107"
+TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq",
+           "diamonds")
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12
+# float operations of one potential evaluation (one per add, multiply,
+# division, square root or transcendental), from csrc/common.cuh
+POTENTIAL_OPS = {
+    "eight_schools_noncentered": 142,    # 14 + 16 per school
+    "eight_schools_centered": 143,
+    "kidiq": 11 * 434 + 24,              # 11 per data row
+    "diamonds": 830,                     # 576 of them in u = Lᵀ(b − b̂)
+}
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def require(ok, what: str) -> None:
@@ -112,6 +141,62 @@ def device_ms(fn, reps: int, replays: int = 5) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / (reps * replays)
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """bound_ms and bound_by of work that must move nbytes and do ops."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rank1_ops(d: int) -> int:
+    """The GGMS74-C1 update: 12 per column's scalars, 6 per entry."""
+    return 12 * d + 6 * d * (d + 1) // 2
+
+
+def k1_bound(C: int, d: int) -> dict:
+    """The lower triangle of Lt, vt and coef in (the kernel never reads the
+    upper triangle), the whole (d, d, C) factor out; 10 per column, 5 per
+    entry."""
+    tri = d * (d + 1) // 2
+    return bound(4 * C * (tri + d + 1 + d * d),
+                 C * (10 * d + 5 * tri))
+
+
+def k2_bound(name: str, C: int, d: int, S: int, F: int,
+             n_data: int) -> dict:
+    """State in (x, loc, the lower triangle of L, pe, map, lam) and out (x,
+    loc, the whole L, pe, map, lam, as), injected draws and data in, frames
+    out; per step the proposal, potential, MH test, running means and
+    rank-1 update, and as_change on each frame and the last step."""
+    tri = d * (d + 1) // 2
+    state_in, state_out = 2 * d + tri + 3, 2 * d + d * d + 4
+    nbytes = 4 * ((state_in + state_out) * C + S * (d + 1) * C
+                  + F * (d + 2) * C + n_data)
+    step = (3 * tri + 2 * d) + POTENTIAL_OPS[name] + 15 + 3 * d \
+        + rank1_ops(d)
+    return bound(nbytes, C * (S * step + (F + 1) * 5 * tri))
+
+
+def k3_bound(name: str, C: int, d: int, n_steps: int, F: int, iters,
+             n_data: int) -> dict:
+    """State in (x, loc, the lower triangle of S, pe, as) and out (x, loc,
+    the whole S, pe, as, the iteration count), data in, frames out; the
+    draws each chain used: 3 uniforms per iteration (this run's iteration
+    counts) and d + 1 normals per transition it opened (n_steps).  Per
+    iteration the inverse map, potential and slice test; per landing the
+    adaptation (rank-1 update, dloc and dS sums) and the next transition's
+    projection and velocity."""
+    total = int(iters.sum())
+    tri = d * (d + 1) // 2
+    state_in, state_out = 2 * d + tri + 2, 2 * d + d * d + 3
+    nbytes = 4 * ((state_in + state_out) * C + 3 * total
+                  + n_steps * (d + 1) * C + F * (d + 2) * C + n_data)
+    iteration = 3 * tri + 5 * d + 9 + POTENTIAL_OPS[name]
+    land = 6 * d + rank1_ops(d) + 3 * tri + 3
+    begin = 3 * d * (d - 1) // 2 + 14 * d + 18
+    return bound(nbytes, (total - C) * iteration + C * n_steps * (land + begin))
 
 
 def chol_inputs(C: int, d: int, seed: int, dev):
@@ -154,12 +239,25 @@ def check_k1(k1, dev) -> dict:
     require(bool(torch.isnan(got).any()), "K1 downdate gave no NaN")
     require(torch.equal(torch.isnan(got), torch.isnan(want)),
             "K1 NaN pattern differs from the plain version")
-    Lt, vt, coef = chol_inputs(4096, 10, seed=0, dev=dev)
+    C, d = 4096, 10
+    Lt, vt, coef = chol_inputs(C, d, seed=0, dev=dev)
     ms = device_ms(lambda: k1.chol_update_cl(Lt, vt, coef), 100)
     plain_ms = device_ms(
         lambda: k1.chol_update_cl_reference(Lt, vt, coef), 10)
-    print(f"K1 (4096, 10): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    # the library's way to the same factor: Cholesky of the re-formed
+    # L Lᵀ + coef v vᵀ (the port never calls it)
+    L, v = Lt.permute(2, 0, 1), vt.t()
+    A = (L @ L.transpose(1, 2)
+         + coef[:, None, None] * v[:, :, None] * v[:, None, :]).contiguous()
+    lib_err = float((torch.linalg.cholesky_ex(A).L
+                     - k1.chol_update_cl(Lt, vt, coef).permute(2, 0, 1))
+                    .abs().max())
+    library_ms = device_ms(lambda: torch.linalg.cholesky_ex(A), 10)
+    print(f"K1 ({C}, {d}): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          f"torch.linalg.cholesky_ex {library_ms:.6f} ms (max abs "
+          f"difference {lib_err:.3e})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **k1_bound(C, d), "library_ms": library_ms}
 
 
 def gold_draws(amt) -> np.ndarray:
@@ -218,10 +316,10 @@ def check_device_potential(k3, t, x) -> float:
     return float((got.double() - want.double()).abs().max())
 
 
-def check_k2(amt, k2, dev, name: str) -> dict:
+def check_k2(amt, k2, dev, name: str, C: int) -> dict:
     t = getattr(amt, name)()
     cfg = amt.ARWMHConfig(num_warmup=4)
-    C, S, d = N_CHAINS, 16, t.dim
+    S, d = 16, t.dim
     g = torch.Generator(dev).manual_seed(123)
     x, loc, L = start_state(amt, name, C, g, dev)
     state = (x, t.potential_fn(x), torch.zeros(C, device=dev), loc,
@@ -254,7 +352,9 @@ def check_k2(amt, k2, dev, name: str) -> dict:
     plain_ms = device_ms(plain, 1)
     print(f"K2 {name} ({C}, d={d}, 16 steps): kernel {ms:.6f} ms, "
           f"plain {plain_ms:.6f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    n_data = t.data.on(dev)["kernel_data"].numel()
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **k2_bound(name, C, d, S, 4, n_data), "library_ms": None}
 
 
 def check_k3(amt, k3, dev, name: str, C: int) -> dict:
@@ -312,7 +412,10 @@ def check_k3(amt, k3, dev, name: str, C: int) -> dict:
           f"{ms:.6f} ms, plain {plain_ms:.6f} ms")
     if name == "eight_schools_noncentered":
         check_k3_bailout(amt, k3, t, state, g)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+    n_data = t.data.on(dev)["kernel_data"].numel()
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            **k3_bound(name, C, d, n_steps, F, gi, n_data),
+            "library_ms": None}
 
 
 def check_k3_bailout(amt, k3, t, state, g) -> None:
@@ -477,7 +580,7 @@ def run_fused(amt, name: str, sampler: str, C: int, num_warmup: int,
     return rate, draws
 
 
-def diamonds_gate(amt, draws) -> None:
+def diamonds_gate(amt, draws, label: str) -> None:
     """The pooled draws against the gold: every coordinate's mean within
     DIAMONDS_MAX_MEAN_ERR gold sd, every sd ratio in DIAMONDS_SD_RATIO."""
     gold = gold_draws(amt)
@@ -489,15 +592,15 @@ def diamonds_gate(amt, draws) -> None:
     # chains whose own mean is 3 gold sd off in some coordinate (stuck)
     chain_err = (x.mean(0).cpu().numpy() - gm) / gsd
     stuck = int((np.abs(chain_err) > 3.0).any(axis=1).sum())
-    print(f"diamonds vs gold: max standardized mean error {err.max():.4f} "
+    print(f"{label} vs gold: max standardized mean error {err.max():.4f} "
           f"(coordinate {int(err.argmax())}), sd ratio "
           f"[{ratio.min():.4f}, {ratio.max():.4f}], chains 3 gold sd off "
           f"{stuck} of {x.shape[1]}")
     require(err.max() <= DIAMONDS_MAX_MEAN_ERR,
-            f"diamonds mean error {err.max()}")
+            f"{label}: mean error {err.max()}")
     lo, hi = DIAMONDS_SD_RATIO
     require(lo <= ratio.min() and ratio.max() <= hi,
-            f"diamonds sd ratio [{ratio.min()}, {ratio.max()}]")
+            f"{label}: sd ratio [{ratio.min()}, {ratio.max()}]")
 
 
 def kidiq_gate(amt, draws, label: str) -> None:
@@ -522,6 +625,7 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a CUDA card", file=sys.stderr)
@@ -533,11 +637,7 @@ def main() -> int:
     from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1
 
     # 1. device
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
@@ -555,10 +655,12 @@ def main() -> int:
 
     # 2.-4. kernels against their plain versions
     k1_res = check_k1(k1, dev)
-    k2_res = {name: check_k2(amt, k2, dev, name) for name in K2_TARGETS}
-    k3_res = {name: check_k3(amt, k3, dev, name,
-                             SLICE_CHAINS if name == "diamonds" else N_CHAINS)
-              for name in K3_TARGETS}
+    chains = {name: SLICE_CHAINS if name == "diamonds" else N_CHAINS
+              for name in TARGETS}
+    k2_res = {name: check_k2(amt, k2, dev, name, chains[name])
+              for name in TARGETS}
+    k3_res = {name: check_k3(amt, k3, dev, name, chains[name])
+              for name in TARGETS}
     counters = (k1, k2, k3)
 
     # 5. the ARWMH main path, through K1 and K2
@@ -595,12 +697,15 @@ def main() -> int:
           f"({k3_us:.4f} µs per step in step_n), ASSS lockstep "
           f"{k1_asss[True][0]:.1f}, ASSS pipelined {k1_asss[False][0]:.1f}")
 
-    # 7. the slice: diamonds through K3; kidiq through K3 and K2 with its
-    # OLS check; centered eight schools through K3 and K2
+    # 7. the slice: diamonds through K3 and K2 with the gold check; kidiq
+    # through K3 and K2 with its OLS check; centered eight schools through
+    # K3 and K2
     launches = {("arwmh_fused", "eight_schools_noncentered"): k2_main,
                 ("asss_fused", "eight_schools_noncentered"): k3_main}
     rates = {}
-    paths = [("diamonds", "ASSS", SLICE_CHAINS, SLICE_WARMUP, SLICE_SAMPLES)]
+    paths = [("diamonds", "ASSS", SLICE_CHAINS, SLICE_WARMUP, SLICE_SAMPLES),
+             ("diamonds", "ARWMH", SLICE_CHAINS, ARWMH_DIAMONDS_WARMUP,
+              ARWMH_DIAMONDS_SAMPLES)]
     for name, warmup, samples in (
             ("kidiq", KIDIQ_WARMUP, KIDIQ_SAMPLES),
             ("eight_schools_centered", CENTERED_WARMUP, CENTERED_SAMPLES)):
@@ -617,7 +722,7 @@ def main() -> int:
         print(f"launches: {label} {lib} {mod.launches}")
         require(mod.launches > 0, f"{label} never launched {lib}")
         if name == "diamonds":
-            diamonds_gate(amt, draws)
+            diamonds_gate(amt, draws, label)
         elif name == "kidiq":
             kidiq_gate(amt, draws, label)
         else:
@@ -630,18 +735,17 @@ def main() -> int:
         for (sampler, name), rate in rates.items()))
 
     # 8. results
-    kernels = [kernel_entry(
-        "chol_update", "chol_update.cu",
-        "adaptive_mcmc_tpu/ops/pallas/chol_update.py:107", k1_main, k1_res)]
-    for lib, source, replaces, targets, res in (
-            ("arwmh_fused", "arwmh_fused.cu", K2_REPLACES, K2_TARGETS,
-             k2_res),
-            ("asss_fused", "asss_fused.cu", K3_REPLACES, K3_TARGETS,
-             k3_res)):
-        for name in targets:
+    kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
+                            k1_main, k1_res)]
+    for lib, source, replaces, res in (
+            ("arwmh_fused", "arwmh_fused.cu", K2_REPLACES, k2_res),
+            ("asss_fused", "asss_fused.cu", K3_REPLACES, k3_res)):
+        for name in TARGETS:
             tag = getattr(amt, name)().device_potential
             kernels.append(kernel_entry(f"{lib}[{tag}]", source, replaces,
                                         launches[(lib, name)], res[name]))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, "
+          f"builds included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

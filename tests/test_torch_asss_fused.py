@@ -185,8 +185,8 @@ def test_fused_rejects_targets_without_a_device_potential():
     assert int(st.i) == 3
 
 
-# the targets each fused kernel runs on the card, by their device-potential
-# tag; K2 keeps its factor in registers and stops at d = 16
+# the targets both fused kernels run on the card, by their device-potential
+# tag
 TAGGED = {
     "eight_schools_noncentered": amt.eight_schools_noncentered,
     "eight_schools_centered": amt.eight_schools_centered,
@@ -217,13 +217,8 @@ def test_device_potential_gate_accepts_tagged_targets(tag):
     t = TAGGED[tag]()
     assert t.device_potential == tag
     assert k3.check_device_potential(t, "fused ASSS") == tag
-    if tag == "diamonds_ss":                 # d = 26: no K2 instantiation
-        with pytest.raises(NotImplementedError):
-            k3.check_device_potential(t, "fused ARWMH")
-        with pytest.raises(NotImplementedError):
-            amt.arwmh(t, amt.ARWMHConfig(fused=True))
-    else:
-        assert k3.check_device_potential(t, "fused ARWMH") == tag
+    assert k3.check_device_potential(t, "fused ARWMH") == tag
+    assert amt.arwmh(t, amt.ARWMHConfig(fused=True)).step_n is not None
 
 
 def test_drive_leaves_the_callers_state_unchanged():

@@ -170,9 +170,10 @@ def test_asss_drivers_go_through_k1(cuda, lockstep):
     assert int(last.i) == 60 and k1.launches > 0
 
 
-# the instantiations of K2 and K3 by target builder; K2 stops at d = 16
-K2_TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq")
-K3_TARGETS = K2_TARGETS + ("diamonds",)
+# the instantiations of K2 and K3 by target builder
+K2_TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq",
+              "diamonds")
+K3_TARGETS = K2_TARGETS
 
 
 def _start(t, C, device, seed):
@@ -306,3 +307,55 @@ def test_asss_main_path_goes_through_k3_per_target(cuda, name):
     assert samples.is_cuda and samples.shape == (100 * 128, t.dim)
     assert bool(torch.isfinite(samples).all())
     assert k3.launches > 0
+
+
+@pytest.mark.parametrize("name", ["kidiq", "diamonds"])
+def test_arwmh_main_path_goes_through_k2_per_target(cuda, name):
+    t = getattr(amt, name)()
+    k2.launches = 0
+    mcmc = amt.MCMC(amt.arwmh(t, amt.ARWMHConfig(fused=True)),
+                    num_warmup=200, num_samples=400, thinning=4,
+                    n_chains=128)
+    mcmc.run(torch.Generator(cuda).manual_seed(1))
+    samples = mcmc.get_samples(flat_unconstrained=True)
+    assert samples.is_cuda and samples.shape == (100 * 128, t.dim)
+    assert bool(torch.isfinite(samples).all())
+    assert k2.launches > 0
+
+
+@pytest.mark.parametrize("lib", ["arwmh_fused", "asss_fused"])
+@pytest.mark.parametrize("name", ["kidiq", "diamonds"])
+def test_cooperative_nan_guard_keeps_the_factor(cuda, lib, name):
+    """Chain 0's factor has a zero last diagonal entry, so every rank-1
+    update of it divides by zero in the last column, on one lane of its
+    group only: the group's vote keeps the old factor bit for bit, and the
+    other chains match the plain version."""
+    t = getattr(amt, name)()
+    C, d, n = 64, t.dim, 16
+    g, x, loc, L = _start(t, C, cuda, 6)
+    L = L.contiguous().clone()
+    L[0, d - 1, d - 1] = 0.0
+    if lib == "arwmh_fused":
+        cfg = amt.ARWMHConfig(num_warmup=4)
+        state = (x, t.potential_fn(x), torch.zeros(C, device=cuda), loc, L,
+                 torch.zeros(C, device=cuda),
+                 torch.zeros((), dtype=torch.int32, device=cuda))
+        draws = dict(noise=torch.randn((n, C, d), generator=g, device=cuda),
+                     unif=torch.rand((n, C), generator=g, device=cuda))
+        got, _ = k2.build_fused_arwmh(t, cfg)(state, n, **draws)
+        want, _ = k2.fused_arwmh_reference(t, cfg, state, n, **draws)
+        fields, factor = (0, 1, 2, 3, 4, 5, 7), 4
+    else:
+        cfg = amt.ASSSConfig(num_warmup=8)
+        state = (x, t.potential_fn(x), loc, L, 0, torch.zeros(C, device=cuda))
+        draws = dict(
+            unif3=torch.rand((512, 3, C), generator=g, device=cuda)
+            .clamp_(1e-6, 1 - 1e-6),
+            n01=torch.randn((512, d + 1, C), generator=g, device=cuda))
+        got, _ = k3.build_fused_asss(t, cfg)(state, n, **draws)
+        want, _ = k3.fused_asss_reference(t, cfg, state, n, **draws)
+        fields, factor = (0, 1, 2, 3, 5), 3
+    assert torch.equal(got[factor][0], L[0])
+    assert not torch.equal(got[factor][1:], L[1:])
+    for k in fields:
+        torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-6)
