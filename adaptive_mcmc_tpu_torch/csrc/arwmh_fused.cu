@@ -36,18 +36,23 @@
 // is a dependent chain of a few thousand operations per chain (divisions
 // and square roots of the column recursion, exp/log/log1p of the
 // potential, Philox rounds), with few warps per SM to hide it.  The design
-// keeps every operand in registers and shortens each chain's dependent path
-// with a group of lanes (common.cuh), as K3 does:
-//   * d = 10: one thread per chain, the 55-float factor and its guard copy
-//     in registers, one warp per block so 4096 chains spread over the SMs;
+// keeps every operand in registers and, where a chain's own path is the
+// limit, shortens it with a group of lanes (common.cuh), in blocks of one
+// warp:
+//   * eight schools (d = 10) and diamonds (d = 26), the rows layout:
+//     coordinate i lives on lane i % G of the chain's group, in slot i / G,
+//     with loc_i and row i of L.  The proposal is a row per coordinate
+//     against z_j broadcast by shuffles, the potential's sums gather in
+//     coordinate order, the rank-1 update and the NaN guard are common.cuh's
+//     rank1_rows, the MH test runs alike on every lane.  Diamonds takes a
+//     warp: 2 x 351 factor floats do not fit one thread's registers, a row
+//     and its update (2 x 26) fit a lane's.  Eight schools takes one thread
+//     (G = 1, every slot on lane 0: the one-thread loop of earlier versions,
+//     instruction for instruction): every group of 2 to 32 lanes was slower
+//     on an H100, since each of its lanes repeats the column scalars of the
+//     rank-1 update, the longest part of a step at d = 10 (PERF.md §6);
 //   * kidiq (d = 4): 16 lanes per chain, the state replicated, the
-//     434-term data sum split into its 14 running sums;
-//   * diamonds (d = 26): a warp per chain, lane i owning x_i, loc_i and row
-//     i of L.  2 x 351 factor floats do not fit one thread's registers; a
-//     row and its update (2 x 26) fit a lane's.  The proposal is a row per
-//     lane against z_j broadcast by shuffles, the rank-1 update and the
-//     NaN guard are common.cuh's rank1_rows, the MH test runs alike on
-//     every lane.
+//     434-term data sum split into its 14 running sums.
 // Build without fast math: IEEE division and sqrt keep the NaN of an
 // indefinite update, and no FMA contraction keeps rounding close to the
 // plain version.
@@ -251,32 +256,40 @@ __global__ void __launch_bounds__(kThreads)
   p.as[c] = as_chg;
 }
 
-// ---- rows layout: a warp per chain, lane i owning coordinate i ----------
+// ---- rows layout: a group of P::kLanes lanes per chain, slot r of lane l
+// holding coordinate i = l + kLanes r (x_i, loc_i, z_i and row i of L) for
+// i < D ----------------------------------------------------------------------
 
 template <class P>
 __global__ void __launch_bounds__(kThreads) arwmh_rows_kernel(const Params p) {
   constexpr int D = P::D;
+  constexpr int G = P::kLanes;
+  constexpr int S = P::kSlots;
   constexpr int kNormalBlocks = (D + 3) / 4;
-  static_assert(P::kLanes == 32 && D <= 32, "a warp per chain");
+  static_assert(G * S >= D, "a slot per coordinate");
   int c;
-  const Group<32> g = amt::this_group<32>(&c);
+  const Group<G> g = amt::this_group<G>(&c);
   if (c >= p.C) return;
   const int l = g.lane;
-  const bool own = l < D;
   const size_t C = static_cast<size_t>(p.C);
 
   typename P::RowData data;
   P::load_row(p.data, p.n_data, l, &data);
 
-  float x = 0.0f, loc = 0.0f, row[D];
+  float x[S], loc[S], row[S][D];
 #pragma unroll
-  for (int j = 0; j < D; ++j) row[j] = 0.0f;
-  if (own) {
-    x = p.x[l * C + c];
-    loc = p.loc[l * C + c];
+  for (int r = 0; r < S; ++r) {
+    const int i = l + G * r;
+    x[r] = loc[r] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < D; ++j)
-      if (j <= l) row[j] = p.L[(l * D + j) * C + c];
+    for (int j = 0; j < D; ++j) row[r][j] = 0.0f;
+    if (i < D) {
+      x[r] = p.x[i * C + c];
+      loc[r] = p.loc[i * C + c];
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (j <= i) row[r][j] = p.L[(i * D + j) * C + c];
+    }
   }
   float pe = p.pe[c], map = p.map[c], lam = p.lam[c], as_chg = 0.0f;
   const uint2 key = make_uint2(static_cast<uint32_t>(p.seed),
@@ -285,32 +298,42 @@ __global__ void __launch_bounds__(kThreads) arwmh_rows_kernel(const Params p) {
 
   for (int s = 0; s < p.n_steps; ++s) {
     const int i_glob = p.i0 + s;
-    // 1. draws: lane i its own normal (Philox block i / 4), every lane the
-    // uniform
-    float z = 0.0f, u;
+    // 1. draws: each coordinate its own normal (Philox block i / 4), every
+    // lane the uniform
+    float z[S], u;
     if (p.noise != nullptr) {
-      if (own) z = p.noise[(s * D + l) * C + c];
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        const int i = l + G * r;
+        z[r] = i < D ? p.noise[(s * D + i) * C + c] : 0.0f;
+      }
       u = p.unif[s * C + c];
     } else {
-      z = amt::philox_normal_at(static_cast<uint32_t>(i_glob), 0u, seed_hi,
-                                key, l);
-      const uint4 r = amt::philox4x32_10(
+      amt::philox_normals_rows<G>(static_cast<uint32_t>(i_glob), 0u, seed_hi,
+                                  key, l, z);
+      const uint4 b = amt::philox4x32_10(
           make_uint4(static_cast<uint32_t>(i_glob), kNormalBlocks, seed_hi,
                      0u),
           key);
-      u = bits01(r.x);
+      u = bits01(b.x);
     }
 
-    // 2. proposal: lane i sums row i of L e^lam against z_j broadcast from
-    // lane j, after eps z_i, column by column as the plain version
+    // 2. proposal: row i of L e^lam against z_j broadcast from its lane,
+    // after eps z_i, column by column as the plain version
     const float ss = expf(lam);
-    float yi = p.eps * z;
+    float xp[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) xp[r] = p.eps * z[r];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      const float zj = g.bcast(z, j);
-      if (j <= l) yi = yi + (row[j] * ss) * zj;
+      const float zj = amt::coord(g, z, j);
+#pragma unroll
+      for (int r = 0; r < S; ++r)
+        if (G * r + G - 1 >= j && j <= l + G * r)
+          xp[r] = xp[r] + (row[r][j] * ss) * zj;
     }
-    const float xp = x + yi;
+#pragma unroll
+    for (int r = 0; r < S; ++r) xp[r] = x[r] + xp[r];
 
     // 3.-4. potential and MH accept, alike on every lane
     float pe_prop = P::potential_rows(g, xp, data);
@@ -318,7 +341,8 @@ __global__ void __launch_bounds__(kThreads) arwmh_rows_kernel(const Params p) {
     const float e = expf(pe - pe_prop);
     const float ap = isnan(e) ? e : fminf(e, 1.0f);
     if (u < ap) {
-      x = xp;
+#pragma unroll
+      for (int r = 0; r < S; ++r) x[r] = xp[r];
       pe = pe_prop;
     }
 
@@ -326,41 +350,56 @@ __global__ void __launch_bounds__(kThreads) arwmh_rows_kernel(const Params p) {
     const float2 ck = amt::adapt_clock(i_glob, p.num_warmup, p.lr_decay);
     const float nf = ck.x, gamma = ck.y;
     map = map + (ap - map) / nf;
-    const float w = x - loc;
-    loc = loc + gamma * w;
+    float w[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      w[r] = x[r] - loc[r];
+      loc[r] = loc[r] + gamma * w[r];
+    }
 
-    // 6. rank-1 update with the warp's NaN guard
-    float rown[D];
+    // 6. rank-1 update with the group's NaN guard
+    float rown[S][D];
     const bool bad =
-        amt::rank1_rows<D>(g, row, w, gamma, sqrtf(1.0f - gamma), rown);
+        amt::rank1_rows(g, row, w, gamma, sqrtf(1.0f - gamma), rown);
     const float lam_new = lam + gamma * (ap - p.target_ap);
 
-    // 7. as_change on recorded / final steps (each lane's row, then the
-    // rows by a butterfly: the plain version's torch.sum has an order of
+    // 7. as_change on recorded / final steps (each lane's rows, then the
+    // lanes by a butterfly: the plain version's torch.sum has an order of
     // its own), then commit
     const int f = frame_of(p, s);
     if (f >= 0 || s == p.n_steps - 1) {
       const float e1 = expf(lam_new), e0 = expf(lam);
       float part = 0.0f;
 #pragma unroll
-      for (int j = 0; j < D; ++j) {
-        if (j <= l) {
-          const float dv = (bad ? row[j] : rown[j]) * e1 - row[j] * e0;
-          part = part + dv * dv;
+      for (int r = 0; r < S; ++r) {
+        const int i = l + G * r;
+#pragma unroll
+        for (int j = 0; j < D; ++j) {
+          if (j <= i && i < D) {
+            const float dv = (bad ? row[r][j] : rown[r][j]) * e1 -
+                             row[r][j] * e0;
+            part = part + dv * dv;
+          }
         }
       }
-      float sum = g.xor_sum(own ? part : 0.0f);
+      float sum = g.xor_sum(part);
       const float zu = 0.0f * e1 - 0.0f * e0;
       sum = sum + static_cast<float>(D * (D - 1) / 2) * (zu * zu);
       as_chg = sqrtf(sum);
     }
     if (!bad) {
 #pragma unroll
-      for (int j = 0; j < D; ++j) row[j] = rown[j];
+      for (int r = 0; r < S; ++r)
+#pragma unroll
+        for (int j = 0; j < D; ++j) row[r][j] = rown[r][j];
     }
     lam = lam_new;
     if (f >= 0) {
-      if (own) p.fx[(f * D + l) * C + c] = x;
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        const int i = l + G * r;
+        if (i < D) p.fx[(f * D + i) * C + c] = x[r];
+      }
       if (l == 0) {
         p.fpe[f * C + c] = pe;
         p.fas[f * C + c] = as_chg;
@@ -368,12 +407,16 @@ __global__ void __launch_bounds__(kThreads) arwmh_rows_kernel(const Params p) {
     }
   }
 
-  if (own) {
-    p.x[l * C + c] = x;
-    p.loc[l * C + c] = loc;
 #pragma unroll
-    for (int j = 0; j < D; ++j)
-      p.L[(l * D + j) * C + c] = j <= l ? row[j] : 0.0f;
+  for (int r = 0; r < S; ++r) {
+    const int i = l + G * r;
+    if (i < D) {
+      p.x[i * C + c] = x[r];
+      p.loc[i * C + c] = loc[r];
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        p.L[(i * D + j) * C + c] = j <= i ? row[r][j] : 0.0f;
+    }
   }
   if (l == 0) {
     p.pe[c] = pe;
@@ -410,12 +453,29 @@ int launch(float* x, float* pe, float* map, float* loc, float* L, float* lam,
   return static_cast<int>(cudaGetLastError());
 }
 
+// P's lanes per chain and threads per block, and how many blocks of its
+// sweep kernel one SM holds at once, by the occupancy calculator.
+template <class P>
+int layout(int* lanes, int* threads, int* blocks_per_sm) {
+  *lanes = P::kLanes;
+  *threads = kThreads;
+  cudaError_t err;
+  if constexpr (P::kRows)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, arwmh_rows_kernel<P>, kThreads, 0);
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, arwmh_replicated_kernel<P>, kThreads, 0);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // One entry point per device potential, arwmh_fused_<tag> (the tag of
-// Target.device_potential).  Each returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue for a D or data length
-// that is not the potential's, or bad arguments.
+// Target.device_potential), and arwmh_fused_layout_<tag> for its layout.
+// Each returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a D or data length that is not the potential's,
+// or bad arguments.
 #define AMT_ARWMH_FUSED_ENTRY(TAG, POLICY)                                    \
   extern "C" int arwmh_fused_##TAG(                                           \
       float* x, float* pe, float* map, float* loc, float* L, float* lam,      \
@@ -428,9 +488,15 @@ int launch(float* x, float* pe, float* map, float* loc, float* L, float* lam,
                           noise, unif, fx, fpe, fas, C, D, n_steps, n_frames, \
                           thinning, i0, num_warmup, lr_decay, target_ap, eps, \
                           seed, stream_ptr);                                  \
+  }                                                                           \
+  extern "C" int arwmh_fused_layout_##TAG(int* lanes, int* threads,           \
+                                          int* blocks_per_sm) {               \
+    return layout<POLICY>(lanes, threads, blocks_per_sm);                     \
   }
 
-AMT_ARWMH_FUSED_ENTRY(eight_schools_noncentered, amt::EightSchoolsNoncentered)
-AMT_ARWMH_FUSED_ENTRY(eight_schools_centered, amt::EightSchoolsCentered)
+AMT_ARWMH_FUSED_ENTRY(eight_schools_noncentered,
+                      amt::EightSchoolsNoncentered<amt::kEightSchoolsLanesK2>)
+AMT_ARWMH_FUSED_ENTRY(eight_schools_centered,
+                      amt::EightSchoolsCentered<amt::kEightSchoolsLanesK2>)
 AMT_ARWMH_FUSED_ENTRY(kidiq, amt::Kidiq)
 AMT_ARWMH_FUSED_ENTRY(diamonds_ss, amt::DiamondsSuffStats)

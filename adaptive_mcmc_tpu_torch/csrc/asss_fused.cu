@@ -45,24 +45,29 @@
 // the inverse map, and on landing the column recursion's divisions and
 // square roots, the forward substitution, the Philox rounds), and the card
 // holds only a few warps per SM to hide that.  So the design shortens each
-// chain's dependent path by giving it a group of lanes (common.cuh):
-//   * d = 10 (eight schools): one thread per chain, everything in
-//     registers (55-float factor and its guard copy); 4096 chains are one
-//     warp per SM.
+// chain's dependent path by giving it a group of lanes (common.cuh), in
+// blocks of one warp:
+//   * eight schools (d = 10) and diamonds (d = 26), the rows layout:
+//     coordinate i lives on lane i % G of the chain's group, in slot i / G,
+//     with loc_i, z_i, v_i and row i of S; coordinate d holds z_d and v_d.
+//     The inverse map is a row per coordinate (x_j / pole broadcast by
+//     shuffles), the forward substitution and the rank-1 update go column
+//     by column with the column's scalars broadcast, the NaN guard is a
+//     vote of the group, and the d-sums (nsq, dot, vv and the potential's)
+//     gather in coordinate order, which is the plain version's
+//     left-to-right order.  Eight schools takes 16 lanes, two chains a
+//     warp: 4096 chains make 2048 warps, where one thread per chain made
+//     128, one warp on each SM that ran the landing and the shrinking
+//     branch of its 32 chains on most iterations (16 lanes beat 1 to 32 on
+//     an H100, PERF.md §6).  Diamonds takes a warp: the 351-float factor
+//     and its guard copy fit no thread's registers; a lane holds two rows.
 //   * kidiq (d = 4): a group of 16 lanes, two chains per warp.  The state
 //     is replicated on every lane; the 434-term data sum runs as 14 lanes'
 //     running sums (its plain version's sum_strided order), met in lane
 //     order.  The serial sum of 434 terms becomes 31 per lane.
-//   * diamonds (d = 26): a warp per chain, lane i owning x_i, loc_i, z_i,
-//     v_i and row i of S (26 registers), lane 26 z_d and v_d.  The inverse
-//     map is a row per lane (x_j / pole broadcast by shuffles), the forward
-//     substitution and the rank-1 update go column by column with the
-//     column's scalars broadcast, the NaN guard is a warp vote, and the
-//     d-sums (nsq, dot, vv and the potential's) gather in lane order, which
-//     is the plain version's left-to-right order.  The 351-float factor
-//     and its guard copy fit no thread's registers; a lane holds two rows.
-// A warp's chains land on different iterations, so at d = 10 and kidiq a
-// warp runs both branches on most iterations; at d = 26 it never does.
+// The chains of one warp land on different iterations, so where a warp
+// holds two (eight schools, kidiq) it runs both branches on many
+// iterations; a diamonds warp never does.
 // Build without fast math: IEEE division and sqrt keep the NaN of an
 // indefinite update, and no FMA contraction keeps rounding equal to the
 // plain version, so that near-ties of the slice test fall the same way.
@@ -151,18 +156,24 @@ __device__ __forceinline__ void normals(const Params& p, int it, int c,
   }
 }
 
-// normal i < N of iteration it alone (a row lane's own)
-template <int N>
-__device__ __forceinline__ float normal_at(const Params& p, int it, int c,
-                                           const Stream& st, int i) {
+// the N velocity normals of iteration it in the rows layout: slot r of
+// lane l holds coordinate l + G r's (0 past N with injected draws)
+template <int N, int G, int S>
+__device__ __forceinline__ void normals_rows(const Params& p, int it, int c,
+                                             const Stream& st, int lane,
+                                             float (&n)[S]) {
   if (p.n01 != nullptr) {
-    if (i >= N) return 0.0f;
     const size_t C = static_cast<size_t>(p.C);
     const size_t row = static_cast<size_t>(min(it, p.n_rows - 1));
-    return p.n01[(row * N + i) * C + c];
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const int i = lane + G * r;
+      n[r] = i < N ? p.n01[(row * N + i) * C + c] : 0.0f;
+    }
+  } else {
+    amt::philox_normals_rows<G>(static_cast<uint32_t>(it), 1u, st.seed_hi,
+                                st.key, lane, n);
   }
-  return amt::philox_normal_at(static_cast<uint32_t>(it), 1u, st.seed_hi,
-                               st.key, i);
 }
 
 // entry (i, j) of the whitening factor (S + eps I) sqrt(d)
@@ -404,76 +415,108 @@ __global__ void __launch_bounds__(kThreads)
   p.iters[c] = it;
 }
 
-// ---- rows layout: a warp per chain, lane i owning coordinate i ----------
+// ---- rows layout: a group of P::kLanes lanes per chain, slot r of lane l
+// holding coordinate i = l + kLanes r: x_i, loc_i, z_i, v_i and row i of S
+// for i < D, z_D and v_D for i = D ---------------------------------------
 
-// begin with lane l < D holding x_l, loc_l and row l of S, its normal n
-// (lane l <= D); returns the slice and sets the lane's z and v (lane D the
-// last coordinate).  Same operations and order as begin above.
-template <int D>
-__device__ __forceinline__ Slice begin_rows(const Group<32>& g, float n,
-                                            float ul, float ut, float x,
-                                            float pe, float loc,
-                                            const float (&row)[D], float eps,
-                                            float sqrt_d, float* z,
-                                            float* v) {
+// begin in the rows layout, each coordinate i <= D with its normal n;
+// returns the slice and sets z and v.  Same operations and order as begin
+// above.
+template <int D, int G, int S>
+__device__ __forceinline__ Slice begin_rows(const Group<G>& g,
+                                            const float (&n)[S], float ul,
+                                            float ut, const float (&x)[S],
+                                            float pe, const float (&loc)[S],
+                                            const float (&row)[S][D],
+                                            float eps, float sqrt_d,
+                                            float (&z)[S], float (&v)[S]) {
   const int l = g.lane;
-  float ys = x - loc, xr = 0.0f;
+  float ys[S], xr[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    ys[r] = x[r] - loc[r];
+    xr[r] = 0.0f;
+  }
 #pragma unroll
   for (int k = 0; k < D; ++k) {
-    if (l == k) xr = ys / ((row[k] + eps) * sqrt_d);
-    const float xrk = g.bcast(xr, k);
-    if (l > k && l < D) ys = ys - (row[k] * sqrt_d) * xrk;
+    if (l == k % G)
+      xr[k / G] = ys[k / G] / ((row[k / G][k] + eps) * sqrt_d);
+    const float xrk = amt::coord(g, xr, k);
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const int i = l + G * r;
+      if (G * r + G - 1 > k && i > k && i < D)
+        ys[r] = ys[r] - (row[r][k] * sqrt_d) * xrk;
+    }
   }
-  const float nsq = amt::ordered_sum<D>(g, xr * xr);
+  float sq[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) sq[r] = xr[r] * xr[r];
+  const float nsq = amt::ordered_sum<D>(g, sq);
   const float np1 = nsq + 1.0f;
   const float zd = (nsq - 1.0f) / np1;
-  *z = l < D ? (2.0f * xr) / np1 : (l == D ? zd : 0.0f);
+  float nz[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    const int i = l + G * r;
+    z[r] = i < D ? (2.0f * xr[r]) / np1 : (i == D ? zd : 0.0f);
+    nz[r] = n[r] * z[r];
+  }
   const float pe_t = pe + static_cast<float>(D) * logf(1.0f - zd);
-  const float dot = amt::ordered_sum<D + 1>(g, n * *z);
-  *v = n - dot * *z;
-  const float vv = amt::ordered_sum<D + 1>(g, *v * *v);
-  const float nrm = sqrtf(vv);
-  *v = *v / nrm;
+  const float dot = amt::ordered_sum<D + 1>(g, nz);
+#pragma unroll
+  for (int r = 0; r < S; ++r) {
+    v[r] = n[r] - dot * z[r];
+    sq[r] = v[r] * v[r];
+  }
+  const float nrm = sqrtf(amt::ordered_sum<D + 1>(g, sq));
+#pragma unroll
+  for (int r = 0; r < S; ++r) v[r] = v[r] / nrm;
   return slice_of(pe_t, ul, ut);
 }
 
 template <class P>
 __global__ void __launch_bounds__(kThreads) asss_rows_kernel(const Params p) {
   constexpr int D = P::D;
-  static_assert(P::kLanes == 32 && D < 32,
-                "a warp per chain, lane D holding the last sphere coordinate");
+  constexpr int G = P::kLanes;
+  constexpr int S = P::kSlots;
+  static_assert(G * S > D, "a slot per coordinate and the last sphere one");
   int c;
-  const Group<32> g = amt::this_group<32>(&c);
+  const Group<G> g = amt::this_group<G>(&c);
   if (c >= p.C) return;
   const int l = g.lane;
-  const bool own = l < D;
   const size_t C = static_cast<size_t>(p.C);
   const float eps = p.eps, sqrt_d = p.sqrt_d;
 
   typename P::RowData data;
   P::load_row(p.data, p.n_data, l, &data);
 
-  float x = 0.0f, loc = 0.0f, row[D];
+  float x[S], loc[S], row[S][D];
 #pragma unroll
-  for (int j = 0; j < D; ++j) row[j] = 0.0f;
-  if (own) {
-    x = p.x[l * C + c];
-    loc = p.loc[l * C + c];
+  for (int r = 0; r < S; ++r) {
+    const int i = l + G * r;
+    x[r] = loc[r] = 0.0f;
 #pragma unroll
-    for (int j = 0; j < D; ++j)
-      if (j <= l) row[j] = p.S[(l * D + j) * C + c];
+    for (int j = 0; j < D; ++j) row[r][j] = 0.0f;
+    if (i < D) {
+      x[r] = p.x[i * C + c];
+      loc[r] = p.loc[i * C + c];
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        if (j <= i) row[r][j] = p.S[(i * D + j) * C + c];
+    }
   }
   float pe = p.pe[c], as_chg = p.as[c];
   const Stream st = stream_of(p, c);
 
-  float z = 0.0f, v = 0.0f;
+  float z[S], v[S], n[S];
   Slice sl{};
   int it = 0, trips = 0, done = 0;
   if (p.n_steps > 0) {
     float us, ul, ut;
     uniforms(p, 0, c, st, &us, &ul, &ut);
-    const float n = normal_at<D + 1>(p, 0, c, st, l);
-    sl = begin_rows<D>(g, n, ul, ut, x, pe, loc, row, eps, sqrt_d, &z, &v);
+    normals_rows<D + 1, G>(p, 0, c, st, l, n);
+    sl = begin_rows(g, n, ul, ut, x, pe, loc, row, eps, sqrt_d, z, v);
     it = 1;
   }
 
@@ -482,17 +525,27 @@ __global__ void __launch_bounds__(kThreads) asss_rows_kernel(const Params p) {
     uniforms(p, it, c, st, &us, &ul, &ut);
 
     // 2. the potential at the inverse map of z cos(theta) + v sin(theta):
-    // lane i sums row i of the factor against xb_j broadcast from lane j
+    // row i of the factor against xb_j broadcast from its lane
     const float cs = cosf(sl.theta), sn = sinf(sl.theta);
-    const float zt = z * cs + v * sn;
-    const float pole = 1.0f - g.bcast(zt, D);
-    const float xb = zt / pole;
-    float xp = loc;
+    float xb[S], xp[S];
+#pragma unroll
+    for (int r = 0; r < S; ++r) xb[r] = z[r] * cs + v[r] * sn;
+    const float pole = 1.0f - amt::coord(g, xb, D);
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      xb[r] = xb[r] / pole;
+      xp[r] = loc[r];
+    }
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      const float xbj = g.bcast(xb, j);
-      if (j <= l && own)
-        xp = xp + ((l == j ? row[j] + eps : row[j]) * sqrt_d) * xbj;
+      const float xbj = amt::coord(g, xb, j);
+#pragma unroll
+      for (int r = 0; r < S; ++r) {
+        const int i = l + G * r;
+        if (G * r + G - 1 >= j && j <= i && i < D)
+          xp[r] = xp[r] + ((i == j ? row[r][j] + eps : row[r][j]) * sqrt_d) *
+                              xbj;
+      }
     }
     float u_prop = P::potential_rows(g, xp, data);
     if (isnan(u_prop)) u_prop = CUDART_INF_F;
@@ -503,41 +556,52 @@ __global__ void __launch_bounds__(kThreads) asss_rows_kernel(const Params p) {
     const bool bail = trips >= p.max_trips;
     if (good || bail) {
       if (!bail) {
-        x = xp;
+#pragma unroll
+        for (int r = 0; r < S; ++r) x[r] = xp[r];
         pe = u_prop;
       }
       // 4. adaptation on landing
       if (p.adapt) {
         const float gamma =
             amt::adapt_clock(p.i0 + done, p.num_warmup, p.lr_decay).y;
-        const float w = x - loc;
-        const float loc_new = loc + gamma * w;
-        float rown[D];
+        float w[S], dl = 0.0f;
+#pragma unroll
+        for (int r = 0; r < S; ++r) {
+          w[r] = x[r] - loc[r];
+          // the sums of squares over lanes: the plain version's torch.sum
+          // has an order of its own, and as_change feeds nothing back; the
+          // slots past coordinate D - 1 hold zeros
+          const float dd = (loc[r] + gamma * w[r]) - loc[r];
+          dl = dl + dd * dd;
+        }
+        float rown[S][D];
         const bool bad =
-            amt::rank1_rows<D>(g, row, w, gamma, sqrtf(1.0f - gamma), rown);
-        // the sums of squares over lanes: the plain version's torch.sum
-        // has an order of its own, and as_change feeds nothing back
-        const float dd = loc_new - loc;
-        const float dl = g.xor_sum(own ? dd * dd : 0.0f);
-        loc = loc_new;
+            amt::rank1_rows(g, row, w, gamma, sqrtf(1.0f - gamma), rown);
+#pragma unroll
+        for (int r = 0; r < S; ++r) loc[r] = loc[r] + gamma * w[r];
         float ds = 0.0f;
         if (!bad) {
-          float part = 0.0f;
 #pragma unroll
-          for (int j = 0; j < D; ++j) {
-            const float e = rown[j] - row[j];
-            part = part + e * e;
-            row[j] = rown[j];
-          }
-          ds = g.xor_sum(own ? part : 0.0f);
+          for (int r = 0; r < S; ++r)
+#pragma unroll
+            for (int j = 0; j < D; ++j) {
+              const float e = rown[r][j] - row[r][j];
+              ds = ds + e * e;
+              row[r][j] = rown[r][j];
+            }
+          ds = g.xor_sum(ds);
         }
-        as_chg = sqrtf(dl) + sqrtf(ds);
+        as_chg = sqrtf(g.xor_sum(dl)) + sqrtf(ds);
       }
       ++done;
       if (p.n_frames > 0 && done % p.thinning == 0) {
         const int f = done / p.thinning - 1;
         if (f < p.n_frames) {
-          if (own) p.fx[(f * D + l) * C + c] = x;
+#pragma unroll
+          for (int r = 0; r < S; ++r) {
+            const int i = l + G * r;
+            if (i < D) p.fx[(f * D + i) * C + c] = x[r];
+          }
           if (l == 0) {
             p.fpe[f * C + c] = pe;
             p.fas[f * C + c] = as_chg;
@@ -545,9 +609,8 @@ __global__ void __launch_bounds__(kThreads) asss_rows_kernel(const Params p) {
         }
       }
       if (done < p.n_steps) {
-        const float n = normal_at<D + 1>(p, it, c, st, l);
-        sl = begin_rows<D>(g, n, ul, ut, x, pe, loc, row, eps, sqrt_d, &z,
-                           &v);
+        normals_rows<D + 1, G>(p, it, c, st, l, n);
+        sl = begin_rows(g, n, ul, ut, x, pe, loc, row, eps, sqrt_d, z, v);
       }
       trips = 0;
     } else {
@@ -558,12 +621,16 @@ __global__ void __launch_bounds__(kThreads) asss_rows_kernel(const Params p) {
     ++it;
   }
 
-  if (own) {
-    p.x[l * C + c] = x;
-    p.loc[l * C + c] = loc;
 #pragma unroll
-    for (int j = 0; j < D; ++j)
-      p.S[(l * D + j) * C + c] = j <= l ? row[j] : 0.0f;
+  for (int r = 0; r < S; ++r) {
+    const int i = l + G * r;
+    if (i < D) {
+      p.x[i * C + c] = x[r];
+      p.loc[i * C + c] = loc[r];
+#pragma unroll
+      for (int j = 0; j < D; ++j)
+        p.S[(i * D + j) * C + c] = j <= i ? row[r][j] : 0.0f;
+    }
   }
   if (l == 0) {
     p.pe[c] = pe;
@@ -586,8 +653,13 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (P::kRows) {
     typename P::RowData data;
     P::load_row(raw, n_data, g.lane, &data);
-    const float xl = g.lane < P::D ? x[g.lane * Cs + c] : 0.0f;
-    u = P::potential_rows(g, xl, data);
+    float xs[P::kSlots];
+#pragma unroll
+    for (int r = 0; r < P::kSlots; ++r) {
+      const int i = g.lane + P::kLanes * r;
+      xs[r] = i < P::D ? x[i * Cs + c] : 0.0f;
+    }
+    u = P::potential_rows(g, xs, data);
   } else {
     typename P::Data data;
     P::load(raw, n_data, &data);
@@ -641,13 +713,30 @@ int launch_potential(const float* x, float* out, const float* data,
   return static_cast<int>(cudaGetLastError());
 }
 
+// P's lanes per chain and threads per block, and how many blocks of its
+// sweep kernel one SM holds at once, by the occupancy calculator.
+template <class P>
+int layout(int* lanes, int* threads, int* blocks_per_sm) {
+  *lanes = P::kLanes;
+  *threads = kThreads;
+  cudaError_t err;
+  if constexpr (P::kRows)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, asss_rows_kernel<P>, kThreads, 0);
+  else
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, asss_replicated_kernel<P>, kThreads, 0);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // One entry point per device potential, asss_fused_<tag> (the tag of
-// Target.device_potential), and asss_fused_potential_<tag> for the potential
-// alone.  Each returns cudaGetLastError() after the launch (0 on success),
-// or cudaErrorInvalidValue for a D or data length that is not the
-// potential's, or bad arguments.
+// Target.device_potential), asss_fused_potential_<tag> for the potential
+// alone and asss_fused_layout_<tag> for its layout.  Each returns
+// cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue for a D or data length that is not the potential's,
+// or bad arguments.
 #define AMT_ASSS_FUSED_ENTRY(TAG, POLICY)                                     \
   extern "C" int asss_fused_##TAG(                                            \
       float* x, float* pe, float* loc, float* S, float* as_change,            \
@@ -665,9 +754,15 @@ int launch_potential(const float* x, float* out, const float* data,
                                             const float* data, int n_data,    \
                                             int C, int D, void* stream_ptr) { \
     return launch_potential<POLICY>(x, out, data, n_data, C, D, stream_ptr);  \
+  }                                                                           \
+  extern "C" int asss_fused_layout_##TAG(int* lanes, int* threads,            \
+                                         int* blocks_per_sm) {                \
+    return layout<POLICY>(lanes, threads, blocks_per_sm);                     \
   }
 
-AMT_ASSS_FUSED_ENTRY(eight_schools_noncentered, amt::EightSchoolsNoncentered)
-AMT_ASSS_FUSED_ENTRY(eight_schools_centered, amt::EightSchoolsCentered)
+AMT_ASSS_FUSED_ENTRY(eight_schools_noncentered,
+                     amt::EightSchoolsNoncentered<amt::kEightSchoolsLanesK3>)
+AMT_ASSS_FUSED_ENTRY(eight_schools_centered,
+                     amt::EightSchoolsCentered<amt::kEightSchoolsLanesK3>)
 AMT_ASSS_FUSED_ENTRY(kidiq, amt::Kidiq)
 AMT_ASSS_FUSED_ENTRY(diamonds_ss, amt::DiamondsSuffStats)

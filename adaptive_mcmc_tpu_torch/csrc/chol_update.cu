@@ -40,6 +40,7 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kLanes = 1;   // threads per chain: thread c runs chain c
 
 template <int D>
 __global__ void chol_update_kernel(const float* __restrict__ L,
@@ -84,9 +85,19 @@ __global__ void chol_update_kernel(const float* __restrict__ L,
 template <int D>
 cudaError_t launch(const float* L, const float* v, const float* coef,
                    float* out, int C, cudaStream_t stream) {
-  const int blocks = (C + kThreads - 1) / kThreads;
+  const int blocks = (C * kLanes + kThreads - 1) / kThreads;
   chol_update_kernel<D><<<blocks, kThreads, 0, stream>>>(L, v, coef, out, C);
   return cudaGetLastError();
+}
+
+// The kernel's lanes per chain and threads per block, and how many of its
+// blocks one SM holds at once, by the occupancy calculator.
+template <int D>
+cudaError_t layout(int* lanes, int* threads, int* blocks_per_sm) {
+  *lanes = kLanes;
+  *threads = kThreads;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, chol_update_kernel<D>, kThreads, 0);
 }
 
 }  // namespace
@@ -115,3 +126,20 @@ extern "C" int chol_update_cl(const float* L, const float* v,
 }
 
 #undef AMT_CASE
+
+// chol_update_layout_d<n>: the layout of the kernel at d = n (see layout).
+#define AMT_LAYOUT(n)                                                     \
+  extern "C" int chol_update_layout_d##n(int* lanes, int* threads,        \
+                                         int* blocks_per_sm) {            \
+    return static_cast<int>(layout<n>(lanes, threads, blocks_per_sm));    \
+  }
+
+AMT_LAYOUT(1) AMT_LAYOUT(2) AMT_LAYOUT(3) AMT_LAYOUT(4) AMT_LAYOUT(5)
+AMT_LAYOUT(6) AMT_LAYOUT(7) AMT_LAYOUT(8) AMT_LAYOUT(9) AMT_LAYOUT(10)
+AMT_LAYOUT(11) AMT_LAYOUT(12) AMT_LAYOUT(13) AMT_LAYOUT(14) AMT_LAYOUT(15)
+AMT_LAYOUT(16) AMT_LAYOUT(17) AMT_LAYOUT(18) AMT_LAYOUT(19) AMT_LAYOUT(20)
+AMT_LAYOUT(21) AMT_LAYOUT(22) AMT_LAYOUT(23) AMT_LAYOUT(24) AMT_LAYOUT(25)
+AMT_LAYOUT(26) AMT_LAYOUT(27) AMT_LAYOUT(28) AMT_LAYOUT(29) AMT_LAYOUT(30)
+AMT_LAYOUT(31) AMT_LAYOUT(32)
+
+#undef AMT_LAYOUT

@@ -10,13 +10,17 @@
 //   * replicated (P::kRows false): every lane of the group holds the whole
 //     chain state and runs the same arithmetic; only the potential splits
 //     its work across the lanes (kidiq's data sum), and lane 0 writes.
-//     With kLanes = 1 this is one thread per chain (eight schools).
 //     P::Data, filled by P::load(data, n_data, &view), and
 //     P::potential(x[D], view, group), the negative log density at x;
-//   * rows (P::kRows true, kLanes = 32): lane i < D owns coordinate i and
-//     row i of the d x d factor, lane D the last sphere coordinate of K3.
+//   * rows (P::kRows true): coordinate i < D, with row i of the d x d
+//     factor, lives on lane i % kLanes in slot i / kLanes, and so does K3's
+//     last sphere coordinate i = D; P::kSlots slots hold the D + 1
+//     coordinates, and the slots past them idle through the same
+//     instructions.  Eight schools (d = 10) runs on 16 lanes in K3 (two
+//     chains a warp) and on one thread in K2 (lane 0 holds every slot);
+//     diamonds (d = 26) on a whole warp, one slot a lane.
 //     P::RowData, filled by P::load_row(data, n_data, lane, &view), and
-//     P::potential_rows(group, x_lane, view), which every lane returns.
+//     P::potential_rows(group, x_slots, view), which every lane returns.
 // D is P::D, the float count of the flat data is checked by
 // P::data_ok(n_data).  The data is the target's data["kernel_data"]
 // (models/targets.py).  Each potential follows its plain PyTorch version's
@@ -132,11 +136,32 @@ __device__ __forceinline__ float philox_normal_at(uint32_t ctr,
   return (i & 1) ? n1 : n0;
 }
 
+// The normals of coordinates lane, lane + G, lane + 2 G, ... into z (the
+// rows layout's slots), each philox_normals' normal of its coordinate; one
+// thread (G = 1) draws each block once.
+template <int G, int S>
+__device__ __forceinline__ void philox_normals_rows(uint32_t ctr,
+                                                    uint32_t first_block,
+                                                    uint32_t seed_hi,
+                                                    uint2 key, int lane,
+                                                    float (&z)[S]) {
+  if constexpr (G == 1) {
+    philox_normals<S>(ctr, first_block, seed_hi, key, z);
+  } else {
+#pragma unroll
+    for (int r = 0; r < S; ++r)
+      z[r] = philox_normal_at(ctr, first_block, seed_hi, key, lane + G * r);
+  }
+}
+
 // ---- lane groups -----------------------------------------------------------
 
-// The G lanes of one warp that run one chain (G divides 32).  A group's
-// lanes follow one control flow: every branch reads values that all of them
-// hold alike.
+// The G lanes of one warp that run one chain (G divides 32; G = 1 is one
+// thread per chain).  A group's lanes follow one control flow: every branch
+// reads values that all of them hold alike.  The other groups of the warp
+// may branch otherwise (a K3 chain landing while its neighbour shrinks), so
+// every shuffle and vote names the group's own lanes (mask) and never the
+// warp's.
 template <int G>
 struct Group {
   static_assert(G == 1 || G == 2 || G == 4 || G == 8 || G == 16 || G == 32,
@@ -176,15 +201,41 @@ __device__ __forceinline__ Group<G> this_group(int* chain) {
   return g;
 }
 
-// v of lanes first, first + 1, ..., first + N - 1 summed left to right, on
-// every lane: the order of the plain version's sum_in_order
+// ---- the rows layout ------------------------------------------------------
+
+// A chain's coordinate i lives on lane i % G of its group, in slot i / G of
+// that lane's arrays: row_slots<N, G>() slots hold N coordinates.  Every
+// index into a slot array is a constant of an unrolled loop, so the arrays
+// stay in registers.
 template <int N, int G>
-__device__ __forceinline__ float ordered_sum(const Group<G>& g, float v,
-                                             int first = 0) {
-  float s = g.bcast(v, first);
+__host__ __device__ constexpr int row_slots() {
+  return (N + G - 1) / G;
+}
+
+// coordinate i of the slot array v, to every lane of the group
+template <int G, int S>
+__device__ __forceinline__ float coord(const Group<G>& g, const float (&v)[S],
+                                       int i) {
+  return g.bcast(v[i / G], i % G);
+}
+
+// coordinates First, First + 1, ..., First + N - 1 of the slot array v
+// summed left to right, on every lane: the order of the plain version's
+// sum_in_order
+template <int N, int First = 0, int G, int S>
+__device__ __forceinline__ float ordered_sum(const Group<G>& g,
+                                             const float (&v)[S]) {
+  float s = coord(g, v, First);
 #pragma unroll
-  for (int k = 1; k < N; ++k) s = s + g.bcast(v, first + k);
+  for (int k = 1; k < N; ++k) s = s + coord(g, v, First + k);
   return s;
+}
+
+// the same of one value per lane, lane i holding term i
+template <int N, int First = 0, int G>
+__device__ __forceinline__ float ordered_sum(const Group<G>& g, float v) {
+  const float one[1] = {v};
+  return ordered_sum<N, First>(g, one);
 }
 
 // ---- the adaptation clock --------------------------------------------------
@@ -200,29 +251,34 @@ __device__ __forceinline__ float2 adapt_clock(int i, int num_warmup,
   return make_float2(nf, gamma);
 }
 
-// ---- the rank-1 update, one row per lane ----------------------------------
+// ---- the rank-1 update of a factor held a row per coordinate -------------
 
 // GGMS74-C1 update of sqrt(1 - gamma) S by w with coefficient gamma, for a
-// factor held one row per lane: lane l < D holds row l of S (row[j], j <=
-// l) and w_l.  Column j runs on every lane: lane j's S_jj and w_j are
-// broadcast, every lane computes the column's scalars alike, and lane
-// i >= j updates its entry and w_i.  Each element's operations and their
-// order are those of chol_update_cl_reference (and of the one-thread
-// loop).  Writes the new row to out (zeros above the diagonal) and returns
-// whether any entry of the group's new factor is NaN (the caller then keeps
-// the old factor).
-template <int D>
-__device__ __forceinline__ bool rank1_rows(const Group<32>& g,
-                                           const float (&row)[D], float w,
+// factor held in the rows layout: slot r of lane l holds row i = l + G r of
+// S (row[r][j], j <= i) and w_i, for i < D.  Column j runs on every lane:
+// S_jj and w_j are broadcast from their lane, every lane computes the
+// column's scalars alike, and each row i >= j updates its entry and w_i.
+// Each element's operations and their order are those of
+// chol_update_cl_reference (and of a one-thread loop).  Writes the new rows
+// to out (zeros above the diagonal and past row D - 1) and returns whether
+// any entry of the group's new factor is NaN (the caller then keeps the old
+// factor).
+template <int D, int G, int S>
+__device__ __forceinline__ bool rank1_rows(const Group<G>& g,
+                                           const float (&row)[S][D],
+                                           const float (&w_in)[S],
                                            float gamma, float sq,
-                                           float (&out)[D]) {
+                                           float (&out)[S][D]) {
   const int l = g.lane;
+  float w[S];
+#pragma unroll
+  for (int r = 0; r < S; ++r) w[r] = w_in[r];
   float a = gamma;
   bool bad = false;
 #pragma unroll
   for (int j = 0; j < D; ++j) {
-    const float diag = sq * g.bcast(row[j], j);
-    const float pj = g.bcast(w, j);
+    const float diag = sq * g.bcast(row[j / G][j], j % G);
+    const float pj = coord(g, w, j);
     const float inv_diag = 1.0f / diag;
     const float Dj = diag * diag;
     const float Dj_new = Dj + a * pj * pj;
@@ -232,53 +288,21 @@ __device__ __forceinline__ bool rank1_rows(const Group<32>& g,
     const float s_col = sqrt_Dj_new * inv_diag;
     const float s_new = (pj * a) * inv_Dj_new * sqrt_Dj_new;
     a = a * Dj * inv_Dj_new;
-    out[j] = 0.0f;
-    if (l >= j && l < D) {
-      const float col = sq * row[j];
-      w = w - s_w * col;
-      const float val = s_col * col + s_new * w;
-      bad = bad || isnan(val);
-      out[j] = val;
+#pragma unroll
+    for (int r = 0; r < S; ++r) {
+      const int i = l + G * r;
+      out[r][j] = 0.0f;
+      // slots whose rows all lie above row j or past row D - 1 skip
+      if (G * r + G - 1 >= j && G * r < D && i >= j && i < D) {
+        const float col = sq * row[r][j];
+        w[r] = w[r] - s_w * col;
+        const float val = s_col * col + s_new * w[r];
+        bad = bad || isnan(val);
+        out[r][j] = val;
+      }
     }
   }
   return g.any(bad);
-}
-
-// ---- eight-schools noncentered potential ---------------------------------
-// Same operation order as models/targets.py (and models/base.py):
-//   lp  = normal_logpdf(mu, 0, 5)
-//   lp += half_cauchy_logpdf(tau, 5) + log_tau
-//   lp += sum normal_logpdf(theta_base)
-//   lp += sum normal_logpdf(y, mu + tau theta_base, sigma)
-template <int J>
-__device__ __forceinline__ float eight_schools_potential(
-    const float (&x)[J + 2], const float (&y)[J], const float (&sigma)[J],
-    const float (&log_sigma)[J]) {
-  const float mu = x[0], log_tau = x[1];
-  const float tau = expf(log_tau);
-  // PyTorch on the card divides by a Python scalar as a multiply by its
-  // float reciprocal; the plain version's (x - loc) / 5.0 does so.
-  const float zm = (mu - 0.0f) * (1.0f / 5.0f);
-  float lp = -0.5f * (zm * zm + kLog2Pi) - kLog5;
-  const float zc = tau * (1.0f / 5.0f);
-  lp = lp + ((kHalfCauchy5 - log1pf(zc * zc)) + log_tau);
-  // the J-sums run left to right, as sum_in_order does
-  float s1 = -0.5f * (x[2] * x[2] + kLog2Pi) - 0.0f;
-#pragma unroll
-  for (int k = 1; k < J; ++k) {
-    s1 = s1 + (-0.5f * (x[2 + k] * x[2 + k] + kLog2Pi) - 0.0f);
-  }
-  lp = lp + s1;
-  float s2 = 0.0f;
-#pragma unroll
-  for (int k = 0; k < J; ++k) {
-    const float theta = mu + tau * x[2 + k];
-    const float zy = (y[k] - theta) / sigma[k];
-    const float term = -0.5f * (zy * zy + kLog2Pi) - log_sigma[k];
-    s2 = k == 0 ? term : s2 + term;
-  }
-  lp = lp + s2;
-  return -lp;
 }
 
 // torch.logaddexp as ATen computes it on the card for float: the larger
@@ -290,79 +314,126 @@ __device__ __forceinline__ float logaddexp(float a, float b) {
 
 // ---- potential policies ----------------------------------------------------
 
-// eight schools, J = 8: y and sigma in registers, log sigma once per thread
-struct EightSchoolsData {
-  static constexpr int J = 8;
-  float y[J], sigma[J], log_sigma[J];
+// eight schools, J = 8 schools, in the rows layout on G lanes: coordinate 0
+// is mu, 1 log tau, 2 + k theta_k (or theta_base_k), and the slot of
+// coordinate 2 + k also holds school k's y, sigma and log sigma.
+constexpr int kEightSchoolsJ = 8;
+// Lanes per eight-schools chain in each sweep, fixed by a trial of 1 to 32
+// on an H100 (PERF.md §6).  K3 takes 16: two chains
+// a warp, 2048 warps for 4096 chains where one thread per chain made 128.
+// K2 keeps one thread per chain: each lane of a group repeats the rank-1
+// update's column scalars (two divisions and a square root per column),
+// which at d = 10 cost more than the group saves, and no group was faster.
+constexpr int kEightSchoolsLanesK2 = 1;
+constexpr int kEightSchoolsLanesK3 = 16;
+
+template <int S>
+struct EightSchoolsRows {
+  float y[S], sigma[S], log_sigma[S];  // 0, 1, 0 where no school is
 };
 
-__device__ __forceinline__ void load_eight_schools(const float* data,
-                                                   EightSchoolsData* v) {
+template <int G, int S>
+__device__ __forceinline__ void load_eight_schools_rows(
+    const float* data, int lane, EightSchoolsRows<S>* v) {
 #pragma unroll
-  for (int k = 0; k < EightSchoolsData::J; ++k) {
-    v->y[k] = data[k];
-    v->sigma[k] = data[EightSchoolsData::J + k];
-    v->log_sigma[k] = logf(v->sigma[k]);
+  for (int r = 0; r < S; ++r) {
+    const int k = lane + G * r - 2;
+    const bool school = k >= 0 && k < kEightSchoolsJ;
+    v->y[r] = school ? data[k] : 0.0f;
+    v->sigma[r] = school ? data[kEightSchoolsJ + k] : 1.0f;
+    v->log_sigma[r] = logf(v->sigma[r]);
   }
 }
 
+// lp = normal_logpdf(mu, 0, 5) + (half_cauchy_logpdf(tau, 5) + log_tau),
+// alike on every lane.  PyTorch on the card divides by a Python scalar as a
+// multiply by its float reciprocal; the plain version's (x - loc) / 5.0
+// does so.
+__device__ __forceinline__ float eight_schools_prior(float mu, float tau,
+                                                     float log_tau) {
+  const float zm = (mu - 0.0f) * (1.0f / 5.0f);
+  const float lp = -0.5f * (zm * zm + kLog2Pi) - kLog5;
+  const float zc = tau * (1.0f / 5.0f);
+  return lp + ((kHalfCauchy5 - log1pf(zc * zc)) + log_tau);
+}
+
 // eight schools noncentered, [mu, log tau, theta_base(8)]; data [y, sigma].
-// One thread per chain.
+// Same operation order as models/targets.py (and models/base.py), the
+// J-sums gathered from coordinates 2 .. 9 left to right, as sum_in_order
+// runs:
+//   lp  = normal_logpdf(mu, 0, 5)
+//   lp += half_cauchy_logpdf(tau, 5) + log_tau
+//   lp += sum normal_logpdf(theta_base)
+//   lp += sum normal_logpdf(y, mu + tau theta_base, sigma)
+template <int G>
 struct EightSchoolsNoncentered {
-  static constexpr int D = EightSchoolsData::J + 2;
-  static constexpr int kLanes = 1;
-  static constexpr bool kRows = false;
-  using Data = EightSchoolsData;
-  static bool data_ok(int n) { return n == 2 * Data::J; }
-  __device__ static void load(const float* data, int, Data* v) {
-    load_eight_schools(data, v);
+  static constexpr int J = kEightSchoolsJ;
+  static constexpr int D = J + 2;
+  static constexpr int kLanes = G;
+  static constexpr bool kRows = true;
+  static constexpr int kSlots = row_slots<D + 1, kLanes>();
+  using RowData = EightSchoolsRows<kSlots>;
+  static bool data_ok(int n) { return n == 2 * J; }
+  __device__ static void load_row(const float* data, int, int lane,
+                                  RowData* v) {
+    load_eight_schools_rows<kLanes>(data, lane, v);
   }
-  __device__ static float potential(const float (&x)[D], const Data& v,
-                                    const Group<kLanes>&) {
-    return eight_schools_potential<Data::J>(x, v.y, v.sigma, v.log_sigma);
+  __device__ static float potential_rows(const Group<kLanes>& g,
+                                         const float (&x)[kSlots],
+                                         const RowData& v) {
+    const float mu = coord(g, x, 0), log_tau = coord(g, x, 1);
+    const float tau = expf(log_tau);
+    float lp = eight_schools_prior(mu, tau, log_tau);
+    float prior[kSlots], like[kSlots];
+#pragma unroll
+    for (int r = 0; r < kSlots; ++r) {
+      prior[r] = -0.5f * (x[r] * x[r] + kLog2Pi) - 0.0f;
+      const float theta = mu + tau * x[r];
+      const float zy = (v.y[r] - theta) / v.sigma[r];
+      like[r] = -0.5f * (zy * zy + kLog2Pi) - v.log_sigma[r];
+    }
+    lp = lp + ordered_sum<J, 2>(g, prior);
+    lp = lp + ordered_sum<J, 2>(g, like);
+    return -lp;
   }
 };
 
 // eight schools centered, [mu, log tau, theta(8)]; data [y, sigma].  Same
-// order as models/targets.py eight_schools_centered:
+// order as models/targets.py eight_schools_centered, the J-sums as above:
 //   lp  = normal_logpdf(mu, 0, 5)
 //   lp += half_cauchy_logpdf(tau, 5) + log_tau
 //   lp += sum normal_logpdf(theta, mu, tau)
 //   lp += sum normal_logpdf(y, theta, sigma)
+template <int G>
 struct EightSchoolsCentered {
-  static constexpr int D = EightSchoolsData::J + 2;
-  static constexpr int kLanes = 1;
-  static constexpr bool kRows = false;
-  using Data = EightSchoolsData;
-  static bool data_ok(int n) { return n == 2 * Data::J; }
-  __device__ static void load(const float* data, int, Data* v) {
-    load_eight_schools(data, v);
+  static constexpr int J = kEightSchoolsJ;
+  static constexpr int D = J + 2;
+  static constexpr int kLanes = G;
+  static constexpr bool kRows = true;
+  static constexpr int kSlots = row_slots<D + 1, kLanes>();
+  using RowData = EightSchoolsRows<kSlots>;
+  static bool data_ok(int n) { return n == 2 * J; }
+  __device__ static void load_row(const float* data, int, int lane,
+                                  RowData* v) {
+    load_eight_schools_rows<kLanes>(data, lane, v);
   }
-  __device__ static float potential(const float (&x)[D], const Data& v,
-                                    const Group<kLanes>&) {
-    constexpr int J = Data::J;
-    const float mu = x[0], log_tau = x[1];
+  __device__ static float potential_rows(const Group<kLanes>& g,
+                                         const float (&x)[kSlots],
+                                         const RowData& v) {
+    const float mu = coord(g, x, 0), log_tau = coord(g, x, 1);
     const float tau = expf(log_tau);
-    const float zm = (mu - 0.0f) * (1.0f / 5.0f);
-    float lp = -0.5f * (zm * zm + kLog2Pi) - kLog5;
-    const float zc = tau * (1.0f / 5.0f);
-    lp = lp + ((kHalfCauchy5 - log1pf(zc * zc)) + log_tau);
+    float lp = eight_schools_prior(mu, tau, log_tau);
     const float log_scale = logf(tau);
-    float s1 = 0.0f, s2 = 0.0f;
+    float prior[kSlots], like[kSlots];
 #pragma unroll
-    for (int k = 0; k < J; ++k) {
-      const float z = (x[2 + k] - mu) / tau;
-      const float term = -0.5f * (z * z + kLog2Pi) - log_scale;
-      s1 = k == 0 ? term : s1 + term;
+    for (int r = 0; r < kSlots; ++r) {
+      const float z = (x[r] - mu) / tau;
+      prior[r] = -0.5f * (z * z + kLog2Pi) - log_scale;
+      const float zy = (v.y[r] - x[r]) / v.sigma[r];
+      like[r] = -0.5f * (zy * zy + kLog2Pi) - v.log_sigma[r];
     }
-    lp = lp + s1;
-#pragma unroll
-    for (int k = 0; k < J; ++k) {
-      const float zy = (v.y[k] - x[2 + k]) / v.sigma[k];
-      const float term = -0.5f * (zy * zy + kLog2Pi) - v.log_sigma[k];
-      s2 = k == 0 ? term : s2 + term;
-    }
-    lp = lp + s2;
+    lp = lp + ordered_sum<J, 2>(g, prior);
+    lp = lp + ordered_sum<J, 2>(g, like);
     return -lp;
   }
 };
@@ -435,6 +506,8 @@ struct DiamondsSuffStats {
   static constexpr int D = Kc + 2;
   static constexpr int kLanes = 32;
   static constexpr bool kRows = true;
+  static constexpr int kSlots = row_slots<D + 1, kLanes>();
+  static_assert(kSlots == 1, "a lane per coordinate");
   struct RowData {
     float lt[Kc];  // row lane - 1 of Lᵀ (zeros left of the diagonal)
     float b_hat;
@@ -458,14 +531,16 @@ struct DiamondsSuffStats {
     const float z = (x - loc) * (1.0f / 10.0f);
     return kStudentT3Scale10 - 2.0f * log1pf((z * z) * (1.0f / 3.0f));
   }
-  __device__ static float potential_rows(const Group<kLanes>& g, float x,
+  __device__ static float potential_rows(const Group<kLanes>& g,
+                                         const float (&xs)[kSlots],
                                          const RowData& v) {
+    const float x = xs[0];
     const float a = g.bcast(x, 0), log_sigma = g.bcast(x, D - 1);
     const float sigma = expf(log_sigma);
     float lp = student_t3_10(a, 8.0f);
     const float z = (x - 0.0f) * 1.0f;
     const float term = -0.5f * (z * z + kLog2Pi) - 0.0f;
-    lp = lp + ordered_sum<Kc>(g, term, 1);
+    lp = lp + ordered_sum<Kc, 1>(g, term);
     const float folded =
         logaddexp(student_t3_10(sigma, 0.0f), student_t3_10(-sigma, 0.0f));
     lp = lp + (folded + log_sigma);
@@ -478,7 +553,7 @@ struct DiamondsSuffStats {
       if (j == i) u = v.lt[j] * rj;
       if (j > i) u = u + v.lt[j] * rj;
     }
-    const float uu = ordered_sum<Kc>(g, u * u, 1);
+    const float uu = ordered_sum<Kc, 1>(g, u * u);
     const float da = a - v.y_bar;
     const float sse = (v.sse_min + (v.n * da) * da) + uu;
     lp = lp + ((-0.5f * v.n) * (kLog2Pi + 2.0f * log_sigma) -

@@ -159,6 +159,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+def layout(name: str, tag: str) -> tuple:
+    """(lanes per chain, threads per block, blocks resident per SM) of the
+    kernel behind ``<name>_layout_<tag>`` (the occupancy calculator on the
+    current device): the sweep of ``<name>_<tag>`` for K2 and K3, K1 at
+    ``d = n`` for ``chol_update`` and tag ``d<n>``; raises on failure."""
+    fn = function(name, f"{name}_layout_{tag}",
+                  [ctypes.POINTER(ctypes.c_int)] * 3)
+    out = [ctypes.c_int(0) for _ in range(3)]
+    check(fn(*map(ctypes.byref, out)), f"{name}_layout_{tag}")
+    return tuple(v.value for v in out)
+
+
 def ptxas_summary(name: str) -> list:
     """One line per kernel of library ``name`` from ptxas's report of its
     build (the mangled name, registers, stack frame and spill bytes); empty

@@ -4,9 +4,9 @@ Replaces the Pallas kernel built by ``build_fused_arwmh`` in
 ``adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py`` (body ``_make_kernel`` /
 ``_one_step``): ``n_steps`` whole ARWMH transitions in one launch with the
 chain state on chip, thinned frames streamed out.  The CUDA source is
-``csrc/arwmh_fused.cu``: the state in registers, one thread per chain at
-d = 10, 16 lanes per kidiq chain, a warp per diamonds chain (a row of the
-factor per lane).
+``csrc/arwmh_fused.cu``: the state in registers, one thread per
+eight-schools chain (d = 10), a warp per diamonds chain (d = 26) with a row
+of the factor per lane, and 16 lanes per kidiq chain.
 
 ``build_fused_arwmh(target, config)`` returns
 ``drive(state, n_steps, n_frames=0, thinning=1, generator=None, noise=None,

@@ -6,10 +6,10 @@ every chain runs its own slice-sampling state machine for ``n_steps``
 transitions in one launch, and thinned frames stream out as each chain
 lands them.  The CUDA source is ``csrc/asss_fused.cu``, one entry point
 ``asss_fused_<tag>`` per device potential (``Target.device_potential``):
-eight schools noncentered and centered (one thread per chain), kidiq (16
-lanes per chain, the data sum split across them) and diamonds in its
-sufficient-statistic form (a warp per chain, a row of the factor per
-lane).
+eight schools noncentered and centered (16 lanes per chain, a row of the
+factor per lane), kidiq (16 lanes per chain, the data sum split across
+them) and diamonds in its sufficient-statistic form (a warp per chain, a
+row of the factor per lane).
 
 ``build_fused_asss(target, config)`` returns ``drive(state, n_steps,
 n_frames=0, thinning=1, generator=None, unif3=None, n01=None,

@@ -12,7 +12,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and CUDA
    versions, the nvcc build times, ptxas's registers, stack frame and
-   spills of every kernel;
+   spills of every kernel; the lanes per chain of K1 at (4096, 10) and of
+   each K2/K3 instantiation, and the warps per SM each keeps resident at
+   its check's chain count;
 2. K1 (csrc/chol_update.cu) against its plain PyTorch version on the card at
    (C, d) = (4096, 10), (1024, 26), (37, 5) and every d from 1 to 32, the
    NaN of an indefinite downdate, strict triangularity; card times of
@@ -32,7 +34,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bit);
 5. the ARWMH main path: MCMC(arwmh(eight_schools_noncentered()),
    num_warmup=5000, num_samples=20000, thinning=10, n_chains=4096) with the
-   lockstep step (through K1) and with ARWMHConfig(fused=True) (through K2);
+   lockstep step (through K1) and with ARWMHConfig(fused=True) (through K2),
+   and the µs per step of a long K2 step_n;
 6. the ASSS main path: the same MCMC call with
    asss(..., ASSSConfig(fused=True)) (through K3), and the µs per step of a
    long step_n; then the lockstep step and the pipelined step_n (both
@@ -47,9 +50,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every path: posterior checks, launch counts (all counts set to 0 just
    before the path and read just after it) and chain-iters/s;
 8. one JSON line of kernel results, one entry per instantiation (with its
-   bound: the larger of the bytes it must move over 3.35 TB/s and its
-   float operations over 67 TFLOP/s, counted from the check's inputs and,
-   for K3, its iteration counts), then the contract line last.
+   lanes per chain and its bound: the larger of the bytes it must move over
+   3.35 TB/s and its float operations over 67 TFLOP/s, counted from the
+   check's inputs and, for K3, its iteration counts), then the contract
+   line last.
 """
 
 import dataclasses
@@ -446,7 +450,9 @@ def eight_schools_bands(name: str, sites) -> None:
     require(abs(tau_median - 2.9) < 0.4, f"{name}: tau median {tau_median}")
 
 
-def run_main_path(amt, fused: bool, card: str) -> float:
+def run_main_path(amt, fused: bool, card: str):
+    """The ARWMH main path through K1 (lockstep) or K2 (fused); returns
+    (rate, last state)."""
     t = amt.eight_schools_noncentered()
     mcmc = amt.MCMC(amt.arwmh(t, amt.ARWMHConfig(fused=fused)),
                     num_warmup=NUM_WARMUP, num_samples=NUM_SAMPLES,
@@ -472,7 +478,7 @@ def run_main_path(amt, fused: bool, card: str) -> float:
           f"{NUM_WARMUP + NUM_SAMPLES} steps in {wall:.3f} s, build "
           f"excluded) on {card}")
     require(0.15 < accept < 0.35, f"mean acceptance {accept}")
-    return rate
+    return rate, mcmc.last_state
 
 
 def run_asss_fused(amt, card: str):
@@ -502,7 +508,7 @@ def run_asss_fused(amt, card: str):
     return rate, mcmc.last_state
 
 
-def step_n_us(kernel, state, n_steps: int, card: str) -> float:
+def step_n_us(kernel, state, n_steps: int, label: str, card: str) -> float:
     """µs per step of one long production-mode step_n (CUDA events)."""
     g = torch.Generator("cuda").manual_seed(7)
     start = torch.cuda.Event(enable_timing=True)
@@ -513,8 +519,8 @@ def step_n_us(kernel, state, n_steps: int, card: str) -> float:
     end.synchronize()
     require(int(out.i) == int(state.i) + n_steps, "step_n step counter")
     us = start.elapsed_time(end) * 1000.0 / n_steps
-    print(f"ASSS fused (K3) step_n of {n_steps} steps at {N_CHAINS} chains: "
-          f"{us:.4f} µs per step on {card}")
+    print(f"{label} step_n of {n_steps} steps at {state.position.shape[0]} "
+          f"chains: {us:.4f} µs per step on {card}")
     return us
 
 
@@ -617,11 +623,39 @@ def kidiq_gate(amt, draws, label: str) -> None:
             f"{label}: sigma median off by {sigma_rel}")
 
 
+def layouts(amt, build, chains: dict) -> dict:
+    """Lanes per chain of K1 at the main path's (4096, 10) and of every K2
+    and K3 instantiation, printed with the warps its check's chain count
+    makes and how many of them each SM holds (the occupancy calculator,
+    from ptxas's registers)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d = amt.eight_schools_noncentered().dim
+    todo = [("chol_update", f"d{d}", "eight_schools_noncentered")]
+    todo += [(lib, getattr(amt, name)().device_potential, name)
+             for lib in ("arwmh_fused", "asss_fused") for name in TARGETS]
+    out = {}
+    for lib, tag, name in todo:
+        lanes, threads, per_sm = build.layout(lib, tag)
+        require(lanes >= 1 and threads % 32 == 0 and per_sm > 0,
+                f"{lib}[{tag}] layout")
+        C = chains[name]
+        blocks = -(-C * lanes // threads)
+        warps = blocks * threads // 32
+        resident = min(per_sm, -(-blocks // sms)) * threads // 32
+        print(f"layout {lib}[{tag}]: {lanes} lanes per chain; {C} chains "
+              f"make {warps} warps in {blocks} blocks of {threads} threads "
+              f"on {sms} SMs; an SM holds at most {per_sm} blocks, so "
+              f"{resident} warps resident per SM where it has work, in "
+              f"{-(-blocks // (per_sm * sms))} wave(s)")
+        out[(lib, name)] = lanes
+    return out
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
-                 res: dict) -> dict:
+                 lanes: int, res: dict) -> dict:
     return dict(name=name, route="cuda",
                 source=f"adaptive_mcmc_tpu_torch/csrc/{source}",
-                replaces=replaces, launches=launches, **res)
+                replaces=replaces, launches=launches, lanes=lanes, **res)
 
 
 def main() -> int:
@@ -653,10 +687,12 @@ def main() -> int:
         for line in _build.ptxas_summary(name):
             print(f"ptxas {name}: {line}")
 
-    # 2.-4. kernels against their plain versions
-    k1_res = check_k1(k1, dev)
     chains = {name: SLICE_CHAINS if name == "diamonds" else N_CHAINS
               for name in TARGETS}
+    lanes = layouts(amt, _build, chains)
+
+    # 2.-4. kernels against their plain versions
+    k1_res = check_k1(k1, dev)
     k2_res = {name: check_k2(amt, k2, dev, name, chains[name])
               for name in TARGETS}
     k3_res = {name: check_k3(amt, k3, dev, name, chains[name])
@@ -665,15 +701,18 @@ def main() -> int:
 
     # 5. the ARWMH main path, through K1 and K2
     reset_launches(*counters)
-    lock_rate = run_main_path(amt, fused=False, card=card)
+    lock_rate, _ = run_main_path(amt, fused=False, card=card)
     k1_main = k1.launches
     reset_launches(*counters)
-    fused_rate = run_main_path(amt, fused=True, card=card)
+    fused_rate, arwmh_last = run_main_path(amt, fused=True, card=card)
     k2_main = k2.launches
     print(f"launches: ARWMH lockstep chol_update {k1_main}, ARWMH fused "
           f"arwmh_fused {k2_main}")
     require(k1_main > 0, "the lockstep ARWMH path never launched K1")
     require(k2_main > 0, "the fused ARWMH path never launched K2")
+    k2_us = step_n_us(amt.arwmh(amt.eight_schools_noncentered(),
+                                amt.ARWMHConfig(fused=True)),
+                      arwmh_last, NUM_SAMPLES, "ARWMH fused (K2)", card)
 
     # 6. the ASSS main path through K3, then the ASSS drivers through K1
     reset_launches(*counters)
@@ -682,7 +721,7 @@ def main() -> int:
     require(k3_main > 0, "the ASSS main path never launched K3")
     k3_us = step_n_us(amt.asss(amt.eight_schools_noncentered(),
                                amt.ASSSConfig(fused=True)),
-                      asss_last, NUM_WARMUP, card)
+                      asss_last, NUM_WARMUP, "ASSS fused (K3)", card)
     k1_asss = {}
     for lockstep in (True, False):
         reset_launches(*counters)
@@ -693,7 +732,8 @@ def main() -> int:
           f"chol_update {k1_asss[True][1]}, ASSS pipelined chol_update "
           f"{k1_asss[False][1]}")
     print(f"chain-iters/s on {card}: ARWMH lockstep {lock_rate:.1f}, ARWMH "
-          f"fused {fused_rate:.1f}, ASSS fused {asss_rate:.1f} "
+          f"fused {fused_rate:.1f} ({k2_us:.4f} µs per step in step_n), "
+          f"ASSS fused {asss_rate:.1f} "
           f"({k3_us:.4f} µs per step in step_n), ASSS lockstep "
           f"{k1_asss[True][0]:.1f}, ASSS pipelined {k1_asss[False][0]:.1f}")
 
@@ -735,15 +775,17 @@ def main() -> int:
         for (sampler, name), rate in rates.items()))
 
     # 8. results
+    k1_lanes = lanes[("chol_update", "eight_schools_noncentered")]
     kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
-                            k1_main, k1_res)]
+                            k1_main, k1_lanes, k1_res)]
     for lib, source, replaces, res in (
             ("arwmh_fused", "arwmh_fused.cu", K2_REPLACES, k2_res),
             ("asss_fused", "asss_fused.cu", K3_REPLACES, k3_res)):
         for name in TARGETS:
             tag = getattr(amt, name)().device_potential
             kernels.append(kernel_entry(f"{lib}[{tag}]", source, replaces,
-                                        launches[(lib, name)], res[name]))
+                                        launches[(lib, name)],
+                                        lanes[(lib, name)], res[name]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, "
           f"builds included")
     print(json.dumps({"kernels": kernels}))

@@ -295,7 +295,7 @@ def test_instantiation_refuses_a_wrong_d(cuda, lib, name):
         _build.check(1, f"{lib}_{tag}")
 
 
-@pytest.mark.parametrize("name", ["kidiq", "diamonds"])
+@pytest.mark.parametrize("name", K3_TARGETS)
 def test_asss_main_path_goes_through_k3_per_target(cuda, name):
     t = getattr(amt, name)()
     k3.launches = 0
@@ -309,7 +309,7 @@ def test_asss_main_path_goes_through_k3_per_target(cuda, name):
     assert k3.launches > 0
 
 
-@pytest.mark.parametrize("name", ["kidiq", "diamonds"])
+@pytest.mark.parametrize("name", K2_TARGETS)
 def test_arwmh_main_path_goes_through_k2_per_target(cuda, name):
     t = getattr(amt, name)()
     k2.launches = 0
@@ -324,7 +324,7 @@ def test_arwmh_main_path_goes_through_k2_per_target(cuda, name):
 
 
 @pytest.mark.parametrize("lib", ["arwmh_fused", "asss_fused"])
-@pytest.mark.parametrize("name", ["kidiq", "diamonds"])
+@pytest.mark.parametrize("name", K2_TARGETS)
 def test_cooperative_nan_guard_keeps_the_factor(cuda, lib, name):
     """Chain 0's factor has a zero last diagonal entry, so every rank-1
     update of it divides by zero in the last column, on one lane of its
@@ -359,3 +359,61 @@ def test_cooperative_nan_guard_keeps_the_factor(cuda, lib, name):
     assert not torch.equal(got[factor][1:], L[1:])
     for k in fields:
         torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-6)
+
+
+EIGHT_SCHOOLS = ("eight_schools_noncentered", "eight_schools_centered")
+
+
+@pytest.mark.parametrize("lib", ["arwmh_fused", "asss_fused"])
+@pytest.mark.parametrize("name", EIGHT_SCHOOLS)
+def test_eight_schools_main_path_fits_the_card_in_one_wave(cuda, lib, name):
+    """The 4096 chains of the main path are resident at once on the card's
+    SMs, whatever lanes per chain the policy takes."""
+    t = getattr(amt, name)()
+    lanes, threads, per_sm = _build.layout(lib, t.device_potential)
+    blocks = -(-4096 * lanes // threads)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert blocks <= per_sm * sms
+
+
+def test_k1_layout_at_every_d(cuda):
+    """K1 reports its layout at every d it takes: one thread per chain, in
+    blocks of whole warps, with room for at least one block per SM."""
+    for d in range(1, 33):
+        lanes, threads, per_sm = _build.layout("chol_update", f"d{d}")
+        assert lanes == 1 and threads % 32 == 0 and per_sm > 0
+
+
+@pytest.mark.parametrize("name", EIGHT_SCHOOLS)
+def test_k3_chains_of_one_warp_land_on_different_iterations(cuda, name):
+    """Two chains in one warp, one group of lanes each: chain 0's slice
+    levels lie 13.8 nats above its potential and chain 1's at it, so they
+    shrink different numbers of times and the warp's two groups part ways.
+    Each chain's state, frames and iteration count match the plain
+    version's."""
+    t = getattr(amt, name)()
+    lanes, _, _ = _build.layout("asss_fused", t.device_potential)
+    assert lanes < 32
+    cfg = amt.ASSSConfig(num_warmup=8)
+    C, d, rows, n = 2, t.dim, 256, 16
+    rng = np.random.default_rng(13)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    x = torch.tensor(rng.uniform(-2, 2, (C, d)), **f32)
+    unif3 = rng.uniform(1e-6, 1 - 1e-6, (rows, 3, C))
+    unif3[:, 1, 0] = 1e-6
+    unif3[:, 1, 1] = 1.0
+    unif3 = torch.tensor(unif3, **f32)
+    n01 = torch.tensor(rng.normal(size=(rows, d + 1, C)), **f32)
+    state = (x, t.potential_fn(x), x.clone(),
+             torch.eye(d, **f32).expand(C, d, d).contiguous(), 0,
+             torch.zeros(C, **f32))
+    got, gf, gi = k3.build_fused_asss(t, cfg)(
+        state, n, 2, 4, unif3=unif3, n01=n01, return_iters=True)
+    want, wf, wi = k3.fused_asss_reference(
+        t, cfg, state, n, 2, 4, unif3=unif3, n01=n01, return_iters=True)
+    assert torch.equal(gi, wi)
+    assert int(gi[0]) != int(gi[1]) and int(gi.max()) <= rows
+    for k in (0, 1, 2, 3, 5):
+        torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-6)
+    for k in wf:
+        torch.testing.assert_close(gf[k], wf[k], rtol=2e-5, atol=2e-6)
