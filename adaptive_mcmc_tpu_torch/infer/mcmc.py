@@ -5,8 +5,11 @@ warmup, then a thinned collection into preallocated ``(num_collect, C, ...)``
 buffers, so the unthinned draws never exist in memory.  Kernels with a
 ``step_n`` driver (ASSS, fused ARWMH) advance through it, and kernels with a
 ``collect_n`` driver (ASSS, fused ARWMH) record the frames inside it
-instead.  PyTorch runs eagerly, so the loop over steps is a
-Python loop.
+instead.  Other kernels advance by their lockstep ``step``: where JAX jits
+the loop, PyTorch runs eagerly, so on a CUDA device ``run_mcmc`` captures a
+block of ``step`` calls into a CUDA graph and replays it
+(:class:`StepBlocks`; kernels that declare ``graph_step``, ARWMH and RWM),
+and elsewhere the loop over steps is a Python loop.
 """
 
 from __future__ import annotations
@@ -15,16 +18,154 @@ import dataclasses
 from typing import Callable, Optional, Sequence
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from adaptive_mcmc_tpu_torch.ops.cuda import CapturedLaunches
 
 Tensor = torch.Tensor
 
 _KERNEL_FACTORIES: dict = {}
 # kernels whose step_n / step take injected ``noise`` / ``unif`` draws
 _NOISE_UNIF_KERNELS = ("arwmh", "rwm")
+# the longest block of steps captured into one CUDA graph
+MAX_GRAPH_STEPS = 64
+# operators that read a device value on the host or make a shape that
+# depends on data: a step that reaches one cannot be captured
+_HOST_READS = ("aten._local_scalar_dense.", "aten.nonzero.",
+               "aten.masked_select.", "aten.unique", "aten._unique")
 
 
 def register_kernel_factory(name: str, factory: Callable) -> None:
     _KERNEL_FACTORIES[name] = factory
+
+
+def _map_tensors(fn, tree, *others):
+    """``fn`` over the tensors of a state (a NamedTuple of tensors and
+    NamedTuples) and of ``others`` of the same structure."""
+    if isinstance(tree, Tensor):
+        return fn(tree, *others)
+    if isinstance(tree, tuple):
+        parts = [_map_tensors(fn, *leaves) for leaves in zip(tree, *others)]
+        return type(tree)(*parts) if hasattr(tree, "_fields") \
+            else type(tree)(parts)
+    raise TypeError(
+        f"a state captured into a CUDA graph holds tensors only, got "
+        f"{type(tree).__name__}: a Python number would keep its value at "
+        f"capture in every replay")
+
+
+class _HostRead(RuntimeError):
+    pass
+
+
+class _NoHostRead(TorchDispatchMode):
+    """Raises where an operator reads a device value on the host (.item(),
+    bool(tensor), int(tensor)) or makes a shape that depends on data."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        masked = name.startswith("aten.index.Tensor") and any(
+            isinstance(i, Tensor) and i.dtype in (torch.bool, torch.uint8)
+            for i in args[1])
+        if masked or name.startswith(_HOST_READS):
+            raise _HostRead(f"{name} reads device data on the host")
+        return func(*args, **(kwargs or {}))
+
+
+def _capture_error(kernel, why) -> RuntimeError:
+    return RuntimeError(
+        f"run_mcmc cannot capture {kernel.name}.step into a CUDA graph: "
+        f"{why}.  A step whose potential_fn reads a value on the host "
+        f"(.item(), bool(tensor), int(tensor)) or makes a shape that "
+        f"depends on data runs only in the eager loop: pass eager=True to "
+        f"run_mcmc or MCMC.run.")
+
+
+def checked_step(kernel, state, generator):
+    """``kernel.step(state, generator)``, run eagerly, refusing a step that
+    reads device data on the host: that step cannot be captured.  On a
+    refusal the generator is put back where it was.  Works on any device;
+    on a CUDA device it is also the warm call a capture needs (it builds K1
+    and creates the library handles)."""
+    saved = None if generator is None else generator.get_state()
+    try:
+        with _NoHostRead():
+            return kernel.step(state, generator)
+    except _HostRead as e:
+        if saved is not None:
+            generator.set_state(saved)
+        raise _capture_error(kernel, e) from e
+
+
+def _on_card(state) -> bool:
+    return all(t.is_cuda for t in state_tensors(state))
+
+
+def state_tensors(state) -> list:
+    """The tensors of a state, in field order."""
+    out = []
+    _map_tensors(lambda t: out.append(t), state)
+    return out
+
+
+def _capture(run_block: Callable, generator, kernel) -> Callable:
+    """Capture ``run_block()`` into a CUDA graph and return its replay.
+    The generator is registered with the graph, so that every replay draws
+    on from the generator's state as the eager calls would.  A kernel
+    launch recorded at capture is counted once per replay instead."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    try:
+        with CapturedLaunches() as recorded, torch.cuda.graph(graph):
+            run_block()
+    except Exception as e:
+        raise _capture_error(kernel, e) from e
+
+    def replay() -> None:
+        graph.replay()
+        recorded.replayed()
+
+    return replay
+
+
+class StepBlocks:
+    """Blocks of ``kernel.step`` calls over static state buffers: the
+    counterpart of the jitted ``fori_loop`` body of the JAX ``run_mcmc``.
+
+    ``state`` is cloned into the buffers (the caller's stays untouched); a
+    block runs ``block`` steps from the buffers and writes the result back
+    into them, and is captured once into a CUDA graph and replayed.  The
+    first step of all runs eagerly (:func:`checked_step`: it refuses a step
+    that cannot be captured, and warms the card for the capture that
+    follows it); after it ``advance(n)`` replays ``n // block`` blocks and
+    runs the remaining steps eagerly over the same buffers.  ``self.state``
+    is the current state; copy what must outlive the next ``advance``."""
+
+    def __init__(self, kernel, generator, state, block: int):
+        self.kernel, self.generator, self.block = kernel, generator, block
+        self.state = _map_tensors(torch.clone, state)
+        self._replay = None
+
+    def _steps(self, n: int, step=None) -> None:
+        step = step or self.kernel.step
+        s = self.state
+        for _ in range(n):
+            s = step(s, self.generator)
+        _map_tensors(lambda dst, src: dst if dst is src else dst.copy_(src),
+                     self.state, s)
+
+    def advance(self, n: int):
+        if self._replay is None and n:
+            self._steps(1, lambda s, g: checked_step(self.kernel, s, g))
+            n -= 1
+            self._replay = _capture(lambda: self._steps(self.block),
+                                    self.generator, self.kernel)
+        for _ in range(n // self.block):
+            self._replay()
+        if n % self.block:
+            self._steps(n % self.block)
+        return self.state
 
 
 def run_mcmc(
@@ -41,6 +182,7 @@ def run_mcmc(
     noise: Optional[Tensor] = None,
     unif: Optional[Tensor] = None,
     device=None,
+    eager: bool = False,
 ):
     """Run ``num_warmup`` burn-in + ``num_samples`` sampling iterations.
 
@@ -50,6 +192,15 @@ def run_mcmc(
     ``noise`` (T, C, d) and ``unif`` (T, C), with T = num_warmup +
     num_samples, replace the generator's draws step for step; only ARWMH
     and RWM take them (ASSS replays go through its ``step``).
+
+    The run is on the device of the state, which follows the generator's
+    (``Target.init_position``): a CUDA generator puts it on the card.
+    There, a kernel without ``step_n`` whose ``step`` can be captured
+    (``Kernel.graph_step``) runs its steps from a CUDA graph, with the draws
+    of the eager loop; ``init_state`` is never written.  A step that cannot
+    be captured after all raises.  ``eager=True`` asks for the Python loop
+    over ``step`` instead; a CPU run and a run with injected draws always
+    take it.
     """
     if num_samples % thinning:
         raise ValueError("num_samples must divide by thinning")
@@ -82,9 +233,17 @@ def run_mcmc(
             return ()
         return noise[t0:t0 + n], unif[t0:t0 + n]
 
+    blocks = None
+    if (kernel.step_n is None and kernel.graph_step and noise is None
+            and not eager and _on_card(state)):
+        blocks = StepBlocks(kernel, generator, state,
+                            min(thinning, MAX_GRAPH_STEPS))
+
     def advance(state, t0: int, n: int):
         if kernel.step_n is not None:
             return kernel.step_n(state, n, generator, *draws(t0, n))
+        if blocks is not None:
+            return blocks.advance(n)
         for t in range(t0, t0 + n):
             state = kernel.step(state, generator,
                                 *(a[0] for a in draws(t, 1)))
@@ -131,7 +290,8 @@ class MCMC:
         self.last_state = None
 
     def run(self, generator: torch.Generator, *, init_position=None,
-            extra_fields: Sequence[str] = (), device=None):
+            extra_fields: Sequence[str] = (), device=None,
+            eager: bool = False):
         # Rebuild the kernel with the driver's warmup count so the
         # adaptation clock resets at the warmup boundary.
         kernel = self.kernel
@@ -162,6 +322,7 @@ class MCMC:
             init_position=init_position,
             extra_fields=extra_fields,
             device=device,
+            eager=eager,
         )
         return self
 

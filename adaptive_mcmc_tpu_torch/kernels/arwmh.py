@@ -202,6 +202,9 @@ def arwmh(target, config: ARWMHConfig = ARWMHConfig()) -> Kernel:
             ("position", "potential_energy", "as_change")
             if config.fused else ()
         ),
+        # the step reads nothing on the host: state.i and the adaptation
+        # clock are device tensors
+        graph_step=True,
     )
 
 

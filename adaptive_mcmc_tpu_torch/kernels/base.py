@@ -40,6 +40,10 @@ class Kernel:
     # info)`` exposing kernel-internal cost drivers (ASSS: per-chain mean
     # shrinkage trips).
     probe: Any = None
+    # Whether ``step`` is a fixed sequence of device work: no value read on
+    # the host, no shape that depends on data.  ``run_mcmc`` then captures
+    # blocks of steps into a CUDA graph when the state is on a CUDA device.
+    graph_step: bool = False
 
 
 def nan_to_inf(pe: Tensor) -> Tensor:

@@ -5,7 +5,16 @@ wrapper runs for CPU tensors, and a launch counter:
 * ``chol_update`` — K1, the batched rank-1 Cholesky update;
 * ``arwmh_fused`` — K2, the fused ARWMH sweep;
 * ``asss_fused`` — K3, the fused ASSS sweep.
+
+A wrapper adds one to its module's ``launches`` where it launches its kernel.
+Nothing else writes a count, with one exception: a launch recorded into a
+CUDA graph runs once per replay of that graph and not at capture, so whoever
+captures one counts it so (:class:`CapturedLaunches`).
 """
+
+import importlib
+
+KERNEL_MODULES = ("chol_update", "arwmh_fused", "asss_fused")
 
 # The device potentials (csrc/common.cuh) each fused sweep is built for, by
 # the tag a target builder sets (Target.device_potential) when its
@@ -32,3 +41,37 @@ def check_device_potential(target, kernel: str) -> str:
             f"device potential {tag!r}"
         )
     return tag
+
+
+def _kernel_module(name: str):
+    return importlib.import_module(f"{__name__}.{name}")
+
+
+def launch_counts() -> dict:
+    """The launch count of every kernel module, by name."""
+    return {n: _kernel_module(n).launches for n in KERNEL_MODULES}
+
+
+class CapturedLaunches:
+    """Launch counts of a CUDA graph.  ``with CapturedLaunches() as rec:``
+    around the capture takes the launches the wrappers counted there, which
+    did not run, off the counts again; ``rec.replayed()`` after each replay
+    of the graph adds them, which did."""
+
+    def __enter__(self):
+        self._before = launch_counts()
+        self._recorded = {}
+        return self
+
+    def __exit__(self, *exc):
+        self._recorded = {n: c - self._before[n]
+                          for n, c in launch_counts().items()}
+        self._add(-1)
+        return False
+
+    def replayed(self) -> None:
+        self._add(1)
+
+    def _add(self, sign: int) -> None:
+        for name, n in self._recorded.items():
+            _kernel_module(name).launches += sign * n

@@ -39,6 +39,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
     "-prec-div=true", "-prec-sqrt=true", "-Xptxas", "-v",
 )
+# Flags of one library beside NVCC_FLAGS.  K1 instantiates three kernels for
+# each d up to 32; nvcc optimises them on all cores at once (the code it
+# makes is the same).
+EXTRA_FLAGS = {"chol_update": ("--split-compile", "0")}
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 _PTXAS_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
 _PTXAS_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -80,13 +84,17 @@ def _sources(src: Path) -> list:
     return out
 
 
+def _flags(src: Path) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(src.stem, ())
+
+
 def source_digest(src: Path) -> str:
     """Hash of ``src``, the local headers it includes and the nvcc flags:
     the key of its built library."""
     h = hashlib.sha256()
     for path in _sources(src):
         h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(src)).encode())
     return h.hexdigest()[:16]
 
 
@@ -97,7 +105,8 @@ def _lib_path(name: str) -> Path:
 def _compile(nvcc: str, name: str, lib: Path):
     """One nvcc run into ``lib``; returns an error message or None."""
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    src = CSRC / f"{name}.cu"
+    cmd = [nvcc, *_flags(src), "-o", str(tmp), str(src)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_seconds[name] = time.perf_counter() - t0
@@ -159,15 +168,20 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def layout(name: str, tag: str) -> tuple:
+def layout(name: str, tag: str, chains: int | None = None) -> tuple:
     """(lanes per chain, threads per block, blocks resident per SM) of the
     kernel behind ``<name>_layout_<tag>`` (the occupancy calculator on the
-    current device): the sweep of ``<name>_<tag>`` for K2 and K3, K1 at
-    ``d = n`` for ``chol_update`` and tag ``d<n>``; raises on failure."""
+    current device): the sweep of ``<name>_<tag>`` for K2 and K3.  K1
+    (``chol_update``) picks its layout from the chain count, so its entry
+    points take ``chains``: tag ``d<n>`` is the chains-first kernel at
+    ``d = n``, ``cl_d<n>`` the chains-last one.  Raises on failure."""
+    lead = [] if chains is None else [ctypes.c_int]
     fn = function(name, f"{name}_layout_{tag}",
-                  [ctypes.POINTER(ctypes.c_int)] * 3)
+                  lead + [ctypes.POINTER(ctypes.c_int)] * 3)
     out = [ctypes.c_int(0) for _ in range(3)]
-    check(fn(*map(ctypes.byref, out)), f"{name}_layout_{tag}")
+    args = ([] if chains is None else [chains]) + [ctypes.byref(v)
+                                                   for v in out]
+    check(fn(*args), f"{name}_layout_{tag}")
     return tuple(v.value for v in out)
 
 

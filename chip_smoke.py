@@ -12,15 +12,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: the card's name and power limit (nvidia-smi), the torch and CUDA
    versions, the nvcc build times, ptxas's registers, stack frame and
-   spills of every kernel; the lanes per chain of K1 at (4096, 10) and of
-   each K2/K3 instantiation, and the warps per SM each keeps resident at
-   its check's chain count;
-2. K1 (csrc/chol_update.cu) against its plain PyTorch version on the card at
-   (C, d) = (4096, 10), (1024, 26), (37, 5) and every d from 1 to 32, the
-   NaN of an indefinite downdate, strict triangularity; card times of
-   kernel, plain version and torch.linalg.cholesky_ex of the re-formed
-   L Lᵀ + coef v vᵀ at (4096, 10) (CUDA events around CUDA-graph
-   replays);
+   spills of every kernel; the lanes per chain of both K1 kernels at
+   (4096, 10) and of each K2/K3 instantiation, and the warps per SM each
+   keeps resident at its check's chain count;
+2. K1 (csrc/chol_update.cu), its chains-last kernel against its plain
+   PyTorch version and its chains-first kernel against the chains-last one
+   bit for bit, on the card at (C, d) = (4096, 10), (1024, 26), (37, 5) and
+   every d from 1 to 32, the NaN of an indefinite downdate, strict
+   triangularity; card times of both kernels, the plain version and
+   torch.linalg.cholesky_ex of the re-formed L Lᵀ + coef v vᵀ at
+   (4096, 10), (1024, 26) and (417792, 10), the batch of 4096 chains x 102
+   the SA sampler brings (CUDA events around CUDA-graph replays);
 3. K2 (csrc/arwmh_fused.cu), each instantiation against its plain version
    on injected draws, 16 steps with frames: eight schools noncentered and
    centered at (4096, 10), kidiq at (4096, 4), diamonds at (1024, 26);
@@ -34,8 +36,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bit);
 5. the ARWMH main path: MCMC(arwmh(eight_schools_noncentered()),
    num_warmup=5000, num_samples=20000, thinning=10, n_chains=4096) with the
-   lockstep step (through K1) and with ARWMHConfig(fused=True) (through K2),
-   and the µs per step of a long K2 step_n;
+   lockstep step (through K1, its steps replayed from a CUDA graph) and
+   with ARWMHConfig(fused=True) (through K2), and the µs per step of a long
+   K2 step_n; before it, the graph run of 500 + 1500 lockstep steps against
+   the eager loop from the same seed bit for bit;
 6. the ASSS main path: the same MCMC call with
    asss(..., ASSSConfig(fused=True)) (through K3), and the µs per step of a
    long step_n; then the lockstep step and the pipelined step_n (both
@@ -48,8 +52,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    through K3 and K2 (finite draws: its funnel makes a short posterior
    gate unreliable);
    every path: posterior checks, launch counts (all counts set to 0 just
-   before the path and read just after it) and chain-iters/s;
-8. one JSON line of kernel results, one entry per instantiation (with its
+   before the path and read just after it) and chain-iters/s; then the
+   host time per step, kernels per step and device idle share of the ARWMH
+   lockstep step, eager and from the graph (torch.profiler; last, because
+   the profiler once on slows every later launch of the process);
+8. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
+   instantiation (with its
    lanes per chain and its bound: the larger of the bytes it must move over
    3.35 TB/s and its float operations over 67 TFLOP/s, counted from the
    check's inputs and, for K3, its iteration counts), then the contract
@@ -72,6 +80,12 @@ K2_RTOL, K2_ATOL = 2e-5, 2e-6
 K3_RTOL, K3_ATOL = 2e-5, 2e-6
 N_CHAINS, NUM_WARMUP, NUM_SAMPLES, THINNING = 4096, 5000, 20000, 10
 K1_ASSS_WARMUP, K1_ASSS_SAMPLES = 500, 1500
+# the graph run against the eager loop, and the profiled windows of each
+GRAPH_CHECK_WARMUP, GRAPH_CHECK_SAMPLES = 500, 1500
+PROFILE_STEPS = {"eager": 200, "graph": 1000}
+# K1's timed shapes: the main path's, diamonds', and the batch SA brings
+# (4096 chains x N = max(102, 2d) at d = 10)
+K1_SHAPES = ((4096, 10), (1024, 26), (417792, 10))
 KERNELS = ("chol_update", "arwmh_fused", "asss_fused")
 # the slice: ASSS on diamonds through K3, sized from the JAX package's ASSS
 # on the CPU (64 chains, pipelined driver), which needed 200000 warmup
@@ -215,53 +229,81 @@ def chol_inputs(C: int, d: int, seed: int, dev):
     return Lt.contiguous(), vt, coef
 
 
-def check_k1(k1, dev) -> dict:
-    worst = 0.0
+def k1_times(k1, dev, C: int, d: int, card: str) -> dict:
+    """Card times at (C, d): both kernels, the plain version and the
+    library's way to the same factor, Cholesky of the re-formed
+    L Lᵀ + coef v vᵀ (the port never calls it); one result per layout."""
+    Lt, vt, coef = chol_inputs(C, d, seed=0, dev=dev)
+    L, v = Lt.permute(2, 0, 1).contiguous(), vt.t().contiguous()
+    reps = 100 if C * d * d < 10_000_000 else 10
+    first_ms = device_ms(lambda: k1.chol_update(L, v, coef), reps)
+    last_ms = device_ms(lambda: k1.chol_update_cl(Lt, vt, coef), reps)
+    plain_ms = device_ms(
+        lambda: k1.chol_update_cl_reference(Lt, vt, coef), reps // 10)
+    A = (L @ L.transpose(1, 2)
+         + coef[:, None, None] * v[:, :, None] * v[:, None, :]).contiguous()
+    lib_err = float((torch.linalg.cholesky_ex(A).L
+                     - k1.chol_update(L, v, coef)).abs().max())
+    library_ms = device_ms(lambda: torch.linalg.cholesky_ex(A), reps // 10)
+    b = k1_bound(C, d)
+    print(f"K1 ({C}, {d}): chains first {first_ms:.6f} ms, chains last "
+          f"{last_ms:.6f} ms, plain {plain_ms:.6f} ms, "
+          f"torch.linalg.cholesky_ex {library_ms:.6f} ms (max abs difference "
+          f"{lib_err:.3e}), bound {b['bound_ms']:.6f} ms by {b['bound_by']} "
+          f"on {card}")
+    return {layout: {"ms": ms, "plain_ms": plain_ms, **b,
+                     "library_ms": library_ms}
+            for layout, ms in (("first", first_ms), ("last", last_ms))}
+
+
+def check_k1(k1, dev, card: str) -> dict:
+    """Both K1 kernels against their plain versions, and against each other
+    bit for bit; returns the kernels-line results of the chains-first and
+    the chains-last kernel at the main path's (4096, 10), each with its own
+    worst error over every shape checked."""
+    worst = {"first": 0.0, "last": 0.0}
     main_shapes = [(4096, 10), (1024, 26), (37, 5)]
     for C, d in main_shapes + [(37, d) for d in range(1, 33) if d != 5]:
         Lt, vt, coef = chol_inputs(C, d, seed=C + d, dev=dev)
         got = k1.chol_update_cl(Lt, vt, coef)
+        L, v = Lt.permute(2, 0, 1).contiguous(), vt.t().contiguous()
+        first = k1.chol_update(L, v, coef)
         want = k1.chol_update_cl_reference(Lt, vt, coef)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
+        err_first = float(
+            (first - k1.chol_update_reference(L, v, coef)).abs().max())
         require(err <= K1_TOL, f"K1 disagrees at C={C} d={d}: {err}")
-        upper = torch.triu(got.permute(2, 0, 1), diagonal=1)
+        require(err_first <= K1_TOL,
+                f"K1 chains-first disagrees at C={C} d={d}: {err_first}")
+        require(torch.equal(first, got.permute(2, 0, 1)),
+                f"K1 chains-first differs from chains-last at C={C} d={d}")
+        upper = torch.triu(first, diagonal=1)
         require(bool((upper == 0).all()), f"K1 not triangular at d={d}")
         require(bool((torch.diagonal(got, 0, 0, 1) > 0).all()),
                 f"K1 diagonal not positive at d={d}")
-        worst = max(worst, err)
+        worst = {"first": max(worst["first"], err_first),
+                 "last": max(worst["last"], err)}
         if (C, d) in main_shapes:
-            print(f"K1 C={C} d={d}: max_abs_err={err:.3e}")
+            print(f"K1 C={C} d={d}: max_abs_err chains last {err:.3e}, "
+                  f"chains first {err_first:.3e}, chains first equals "
+                  f"chains last bit for bit")
     # an indefinite downdate gives NaN where the plain version does
     d, C = 4, 128
     Lt = torch.eye(d, device=dev)[:, :, None].expand(d, d, C).contiguous()
     vt = torch.zeros((d, C), device=dev)
     vt[0] = 10.0
     coef = torch.full((C,), -1.0, device=dev)
-    got = k1.chol_update_cl(Lt, vt, coef)
     want = k1.chol_update_cl_reference(Lt, vt, coef)
-    require(bool(torch.isnan(got).any()), "K1 downdate gave no NaN")
-    require(torch.equal(torch.isnan(got), torch.isnan(want)),
-            "K1 NaN pattern differs from the plain version")
-    C, d = 4096, 10
-    Lt, vt, coef = chol_inputs(C, d, seed=0, dev=dev)
-    ms = device_ms(lambda: k1.chol_update_cl(Lt, vt, coef), 100)
-    plain_ms = device_ms(
-        lambda: k1.chol_update_cl_reference(Lt, vt, coef), 10)
-    # the library's way to the same factor: Cholesky of the re-formed
-    # L Lᵀ + coef v vᵀ (the port never calls it)
-    L, v = Lt.permute(2, 0, 1), vt.t()
-    A = (L @ L.transpose(1, 2)
-         + coef[:, None, None] * v[:, :, None] * v[:, None, :]).contiguous()
-    lib_err = float((torch.linalg.cholesky_ex(A).L
-                     - k1.chol_update_cl(Lt, vt, coef).permute(2, 0, 1))
-                    .abs().max())
-    library_ms = device_ms(lambda: torch.linalg.cholesky_ex(A), 10)
-    print(f"K1 ({C}, {d}): kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-          f"torch.linalg.cholesky_ex {library_ms:.6f} ms (max abs "
-          f"difference {lib_err:.3e})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            **k1_bound(C, d), "library_ms": library_ms}
+    for got in (k1.chol_update_cl(Lt, vt, coef),
+                k1.chol_update(Lt.permute(2, 0, 1).contiguous(),
+                               vt.t().contiguous(), coef).permute(1, 2, 0)):
+        require(bool(torch.isnan(got).any()), "K1 downdate gave no NaN")
+        require(torch.equal(torch.isnan(got), torch.isnan(want)),
+                "K1 NaN pattern differs from the plain version")
+    times = {shape: k1_times(k1, dev, *shape, card) for shape in K1_SHAPES}
+    return {layout: {"max_abs_err": worst[layout], **res}
+            for layout, res in times[K1_SHAPES[0]].items()}
 
 
 def gold_draws(amt) -> np.ndarray:
@@ -470,7 +512,7 @@ def run_main_path(amt, fused: bool, card: str):
             f"draws shape {tuple(draws.shape)}")
     require(bool(torch.isfinite(draws).all()), "non-finite draws")
     accept = float(mcmc.last_state.mean_accept_prob.mean())
-    name = "ARWMH fused (K2)" if fused else "ARWMH lockstep (K1)"
+    name = "ARWMH fused (K2)" if fused else "ARWMH lockstep (K1, graph)"
     rate = N_CHAINS * (NUM_WARMUP + NUM_SAMPLES) / wall
     eight_schools_bands(name, mcmc.get_samples())
     print(f"{name}: mean acceptance {accept:.4f}")
@@ -479,6 +521,108 @@ def run_main_path(amt, fused: bool, card: str):
           f"excluded) on {card}")
     require(0.15 < accept < 0.35, f"mean acceptance {accept}")
     return rate, mcmc.last_state
+
+
+def check_graph_equals_eager(amt, k1) -> None:
+    """run_mcmc of the ARWMH lockstep step at full width from the CUDA
+    graph and from the eager loop, same seed, same init_state: draws and
+    last state bit for bit, init_state untouched, K1 counted once per step
+    in both, and successive frames different."""
+    t = amt.eight_schools_noncentered()
+    from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors
+    W, N = GRAPH_CHECK_WARMUP, GRAPH_CHECK_SAMPLES
+    kernel = amt.arwmh(t, amt.ARWMHConfig(num_warmup=W))
+    init = kernel.init(torch.Generator("cuda").manual_seed(11),
+                       n_chains=N_CHAINS)
+    kept = [x.clone() for x in state_tensors(init)]
+    runs = {}
+    for eager in (True, False):
+        k1.launches = 0
+        g = torch.Generator("cuda").manual_seed(12)
+        samples, extras, last = amt.run_mcmc(
+            kernel, g, W, N, thinning=THINNING, n_chains=N_CHAINS,
+            init_state=init, extra_fields=("potential_energy",), eager=eager)
+        torch.cuda.synchronize()
+        runs[eager] = (samples, extras["potential_energy"],
+                       state_tensors(last), k1.launches,
+                       torch.rand(8, generator=g, device="cuda"))
+    e, gr = runs[True], runs[False]
+    require(e[3] == gr[3] == W + N,
+            f"K1 launches: eager {e[3]}, graph {gr[3]}, steps {W + N}")
+    require(torch.equal(e[0], gr[0]) and torch.equal(e[1], gr[1]),
+            "graph run's draws differ from the eager loop's")
+    require(all(torch.equal(a, b) for a, b in zip(e[2], gr[2])),
+            "graph run's last state differs from the eager loop's")
+    require(torch.equal(e[4], gr[4]),
+            "the generator stands elsewhere after the graph run")
+    require(all(torch.equal(a, b)
+                for a, b in zip(state_tensors(init), kept)),
+            "run_mcmc wrote into the caller's init_state")
+    frames = gr[0]
+    moved = (frames[1:] != frames[:-1]).any(dim=2).float().mean()
+    require(float(moved) > 0.1, f"successive frames repeat: {float(moved)}")
+    print(f"ARWMH lockstep graph run equals the eager run bit for bit: "
+          f"{N // THINNING} frames of {N_CHAINS} chains, last state, the "
+          f"generator's next draws; init_state untouched; K1 launches "
+          f"{gr[3]} = steps in both; chains moved between frames "
+          f"{float(moved):.3f}")
+
+
+def profile_lockstep(amt, eager: bool, card: str) -> dict:
+    """Host time per step (host clock around a synchronised window, no
+    profiler), then the same, kernels per step and device busy per step of
+    a second window under torch.profiler.  The idle share is measured in
+    the profiled window alone: 1 - busy / host time, both of that window.
+    Beside it stands an estimate, not a measurement: the profiled window's
+    busy time against the first window's host time, which is the idle share
+    without the profiler if the kernels take the same time in both."""
+    from torch.profiler import ProfilerActivity, profile
+    from adaptive_mcmc_tpu_torch.infer.mcmc import StepBlocks
+    name = "eager" if eager else "graph"
+    steps = PROFILE_STEPS[name]
+    kernel = amt.arwmh(amt.eight_schools_noncentered(),
+                       amt.ARWMHConfig(num_warmup=NUM_WARMUP))
+    g = torch.Generator("cuda").manual_seed(21)
+    state = kernel.init(g, n_chains=N_CHAINS)
+    if eager:
+        def advance(n):
+            nonlocal state
+            for _ in range(n):
+                state = kernel.step(state, g)
+    else:
+        advance = StepBlocks(kernel, g, state, THINNING).advance
+    advance(10 * THINNING)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    advance(steps)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        advance(steps)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3 / steps
+    n_kernels, busy_us = 0, 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            n_kernels += ev.count
+            busy_us += getattr(ev, "self_device_time_total", None) \
+                or getattr(ev, "self_cuda_time_total", 0.0)
+    require(n_kernels > 0 and busy_us > 0,
+            "torch.profiler recorded no device activity")
+    out = {"host_ms": host_ms, "traced_ms": traced_ms,
+           "kernels": n_kernels / steps, "busy_us": busy_us / steps,
+           "idle": 1.0 - busy_us / steps / (traced_ms * 1e3),
+           "idle_unprofiled": 1.0 - busy_us / steps / (host_ms * 1e3)}
+    print(f"ARWMH lockstep {name}, {steps} steps at {N_CHAINS} chains: host "
+          f"time per step {out['host_ms']:.4f} ms ({out['traced_ms']:.4f} "
+          f"under the profiler), kernels per step {out['kernels']:.1f}, "
+          f"device busy per step {out['busy_us']:.2f} µs, device idle share "
+          f"{out['idle']:.4f}, measured in the profiled window (estimate "
+          f"without the profiler, busy time of that window over the host "
+          f"time of the other: {out['idle_unprofiled']:.4f}) on {card}")
+    return out
 
 
 def run_asss_fused(amt, card: str):
@@ -624,29 +768,35 @@ def kidiq_gate(amt, draws, label: str) -> None:
 
 
 def layouts(amt, build, chains: dict) -> dict:
-    """Lanes per chain of K1 at the main path's (4096, 10) and of every K2
-    and K3 instantiation, printed with the warps its check's chain count
-    makes and how many of them each SM holds (the occupancy calculator,
-    from ptxas's registers)."""
+    """Lanes per chain of both K1 kernels at the main path's (4096, 10) and
+    of every K2 and K3 instantiation, printed with the warps its check's
+    chain count makes and how many of them each SM holds (the occupancy
+    calculator, from ptxas's registers)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     d = amt.eight_schools_noncentered().dim
-    todo = [("chol_update", f"d{d}", "eight_schools_noncentered")]
-    todo += [(lib, getattr(amt, name)().device_potential, name)
+    todo = [("chol_update", f"d{d}", "first", N_CHAINS),
+            ("chol_update", f"cl_d{d}", "last", N_CHAINS),
+            ("chol_update", f"d{d}", "first at SA's batch", K1_SHAPES[2][0])]
+    todo += [(lib, getattr(amt, name)().device_potential, name, None)
              for lib in ("arwmh_fused", "asss_fused") for name in TARGETS]
     out = {}
-    for lib, tag, name in todo:
-        lanes, threads, per_sm = build.layout(lib, tag)
+    for lib, tag, name, k1_chains in todo:
+        lanes, threads, per_sm = build.layout(lib, tag, k1_chains)
         require(lanes >= 1 and threads % 32 == 0 and per_sm > 0,
                 f"{lib}[{tag}] layout")
-        C = chains[name]
+        C = k1_chains or chains[name]
         blocks = -(-C * lanes // threads)
         warps = blocks * threads // 32
         resident = min(per_sm, -(-blocks // sms)) * threads // 32
         print(f"layout {lib}[{tag}]: {lanes} lanes per chain; {C} chains "
               f"make {warps} warps in {blocks} blocks of {threads} threads "
-              f"on {sms} SMs; an SM holds at most {per_sm} blocks, so "
-              f"{resident} warps resident per SM where it has work, in "
+              f"on {sms} SMs ({min(blocks, sms)} SMs hold a block); an SM "
+              f"holds at most {per_sm} blocks, so {resident} warps resident "
+              f"per SM where it has work, in "
               f"{-(-blocks // (per_sm * sms))} wave(s)")
+        if name == "first":
+            require(min(blocks, sms) >= 128,
+                    f"K1 chains first puts a block on {min(blocks, sms)} SMs")
         out[(lib, name)] = lanes
     return out
 
@@ -660,6 +810,11 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
 
 def main() -> int:
     t_start = time.perf_counter()
+
+    def elapsed(phase: str) -> None:
+        print(f"chip_smoke: {phase} done {time.perf_counter() - t_start:.1f} "
+              f"s after the start")
+
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs a CUDA card", file=sys.stderr)
@@ -692,17 +847,24 @@ def main() -> int:
     lanes = layouts(amt, _build, chains)
 
     # 2.-4. kernels against their plain versions
-    k1_res = check_k1(k1, dev)
+    elapsed("build and device")
+    k1_res = check_k1(k1, dev, card)
+    elapsed("K1 checks")
     k2_res = {name: check_k2(amt, k2, dev, name, chains[name])
               for name in TARGETS}
     k3_res = {name: check_k3(amt, k3, dev, name, chains[name])
               for name in TARGETS}
     counters = (k1, k2, k3)
+    elapsed("K2 and K3 checks")
 
-    # 5. the ARWMH main path, through K1 and K2
+    # 5. the ARWMH main path, through K1 (from the CUDA graph) and K2
+    check_graph_equals_eager(amt, k1)
     reset_launches(*counters)
     lock_rate, _ = run_main_path(amt, fused=False, card=card)
     k1_main = k1.launches
+    require(k1_main == NUM_WARMUP + NUM_SAMPLES,
+            f"K1 launches {k1_main} on the lockstep path, steps "
+            f"{NUM_WARMUP + NUM_SAMPLES}")
     reset_launches(*counters)
     fused_rate, arwmh_last = run_main_path(amt, fused=True, card=card)
     k2_main = k2.launches
@@ -713,6 +875,8 @@ def main() -> int:
     k2_us = step_n_us(amt.arwmh(amt.eight_schools_noncentered(),
                                 amt.ARWMHConfig(fused=True)),
                       arwmh_last, NUM_SAMPLES, "ARWMH fused (K2)", card)
+
+    elapsed("the ARWMH main path")
 
     # 6. the ASSS main path through K3, then the ASSS drivers through K1
     reset_launches(*counters)
@@ -736,6 +900,8 @@ def main() -> int:
           f"ASSS fused {asss_rate:.1f} "
           f"({k3_us:.4f} µs per step in step_n), ASSS lockstep "
           f"{k1_asss[True][0]:.1f}, ASSS pipelined {k1_asss[False][0]:.1f}")
+
+    elapsed("the ASSS paths")
 
     # 7. the slice: diamonds through K3 and K2 with the gold check; kidiq
     # through K3 and K2 with its OLS check; centered eight schools through
@@ -774,10 +940,30 @@ def main() -> int:
         f"{sampler} fused {name} {rate:.1f}"
         for (sampler, name), rate in rates.items()))
 
+    # the lockstep step under torch.profiler, after every timed path: once
+    # the profiler has been on, every later launch of the process costs the
+    # host more
+    elapsed("the slice")
+    prof = {eager: profile_lockstep(amt, eager, card)
+            for eager in (True, False)}
+    print(f"ARWMH lockstep step, eager -> graph: host time "
+          f"{prof[True]['host_ms']:.4f} -> {prof[False]['host_ms']:.4f} ms, "
+          f"kernels {prof[True]['kernels']:.1f} -> "
+          f"{prof[False]['kernels']:.1f}, idle share "
+          f"{prof[True]['idle']:.4f} -> {prof[False]['idle']:.4f} "
+          f"under the profiler (estimate without it "
+          f"{prof[True]['idle_unprofiled']:.4f} -> "
+          f"{prof[False]['idle_unprofiled']:.4f})")
+
     # 8. results
-    k1_lanes = lanes[("chol_update", "eight_schools_noncentered")]
+    # K1's chains-first kernel ran the ARWMH lockstep path, its chains-last
+    # kernel the pipelined ASSS machine
     kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
-                            k1_main, k1_lanes, k1_res)]
+                            k1_main, lanes[("chol_update", "first")],
+                            k1_res["first"]),
+               kernel_entry("chol_update_cl", "chol_update.cu", K1_REPLACES,
+                            k1_asss[False][1],
+                            lanes[("chol_update", "last")], k1_res["last"])]
     for lib, source, replaces, res in (
             ("arwmh_fused", "arwmh_fused.cu", K2_REPLACES, k2_res),
             ("asss_fused", "asss_fused.cu", K3_REPLACES, k3_res)):

@@ -138,3 +138,43 @@ def test_wrapper_rejects_bad_shapes_and_dtypes():
         k1.chol_update_cl(L.permute(1, 2, 0), v, coef)          # v not (d, C)
     with pytest.raises(TypeError):
         k1.chol_update(L.double(), v.double(), coef.double())
+
+
+@pytest.mark.parametrize("C,d", [(37, 5), (130, 10), (64, 26)])
+def test_both_entries_take_strided_views_and_match_jax(C, d):
+    """Chains-first and chains-last entries on non-contiguous views of L and
+    v (a slice of a wider array; the transposed views of the other layout)
+    against the JAX scan and the Pallas kernel in interpret mode."""
+    L, v, coef = _inputs(C, d, seed=11)
+    scan = np.asarray(jax.vmap(jch.rank1_cholesky_update)(
+        jnp.asarray(L), jnp.asarray(v), jnp.asarray(coef)))
+    pallas = np.asarray(chol_update_pallas(
+        jnp.asarray(L), jnp.asarray(v), jnp.asarray(coef), interpret=True))
+    wide_L = torch.zeros((C, d, 2 * d))
+    wide_L[:, :, :d] = torch.from_numpy(L)
+    wide_v = torch.zeros((C, 2 * d))
+    wide_v[:, ::2] = torch.from_numpy(v)
+    tL, tv, tc = wide_L[:, :, :d], wide_v[:, ::2], torch.from_numpy(coef)
+    assert not tL.is_contiguous() and not tv.is_contiguous()
+    first = k1.chol_update(tL, tv, tc)
+    Lt, vt = tL.permute(1, 2, 0), tv.t()
+    assert not Lt.is_contiguous() and not vt.is_contiguous()
+    last = k1.chol_update_cl(Lt, vt, tc)
+    assert first.shape == (C, d, d) and last.shape == (d, d, C)
+    assert first.is_contiguous()
+    np.testing.assert_array_equal(last.permute(2, 0, 1).numpy(),
+                                  first.numpy())
+    for want in (scan, pallas):
+        np.testing.assert_allclose(first.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(first.numpy(), np.tril(first.numpy()))
+    # the inputs are left as they were
+    np.testing.assert_array_equal(tL.numpy(), L)
+    np.testing.assert_array_equal(tv.numpy(), v)
+
+
+def test_chains_first_entry_rejects_the_other_layout():
+    L, v, coef = map(torch.from_numpy, _inputs(4, 3))
+    with pytest.raises(ValueError):
+        k1.chol_update(L.permute(1, 2, 0), v.t(), coef)
+    with pytest.raises(ValueError):
+        k1.chol_update(L, v.t(), coef)

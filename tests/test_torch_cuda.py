@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import adaptive_mcmc_tpu_torch as amt  # noqa: E402
+from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import _build  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3  # noqa: E402
@@ -41,16 +42,50 @@ def _chol_inputs(C, d, device, seed=0):
     return Lt, vt, coef
 
 
-@pytest.mark.parametrize("d", list(range(1, 33)))
-def test_k1_matches_plain_version_for_every_d(cuda, d):
-    Lt, vt, coef = _chol_inputs(37, d, cuda, seed=d)
+def _first(Lt, vt):
+    """The chains-first copies of chains-last inputs."""
+    return Lt.permute(2, 0, 1).contiguous(), vt.t().contiguous()
+
+
+def _check_k1_both_layouts(Lt, vt, coef):
+    """Both entries against the plain version within 1e-5, and the
+    chains-first kernel against the chains-last kernel bit for bit."""
+    L, v = _first(Lt, vt)
     before = k1.launches
-    got = k1.chol_update_cl(Lt, vt, coef)
-    assert k1.launches == before + 1
+    last = k1.chol_update_cl(Lt, vt, coef)
+    first = k1.chol_update(L, v, coef)
+    assert k1.launches == before + 2
     want = k1.chol_update_cl_reference(Lt, vt, coef)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert torch.equal(got, torch.tril(got.permute(2, 0, 1)).permute(1, 2, 0))
+    assert first.is_contiguous() and first.shape == L.shape
+    torch.testing.assert_close(last, want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(first, k1.chol_update_reference(L, v, coef),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(first, last.permute(2, 0, 1))
+    assert torch.equal(first, torch.tril(first))
+    assert bool((torch.diagonal(first, 0, 1, 2) > 0).all())
+
+
+@pytest.mark.parametrize("d", list(range(1, 33)))
+def test_k1_matches_plain_version_for_every_d(cuda, d):
+    _check_k1_both_layouts(*_chol_inputs(37, d, cuda, seed=d))
+
+
+@pytest.mark.parametrize("d", [10, 26])
+@pytest.mark.parametrize("C", [1, 31, 33, 4097])
+def test_k1_ragged_chain_counts(cuda, C, d):
+    """Chain counts that fill no whole block, in both layouts; the floats
+    around the output stay untouched."""
+    Lt, vt, coef = _chol_inputs(C, d, cuda, seed=C)
+    _check_k1_both_layouts(Lt, vt, coef)
+    L, v = _first(Lt, vt)
+    # a view into the middle of a larger buffer: the kernel writes its own
+    # C chains only
+    pad = torch.full((C + 2, d, d), 7.0, device=cuda)
+    pad[1:-1] = L
+    got = k1.chol_update(pad[1:-1], v, coef)
+    assert torch.equal(got, k1.chol_update(L, v, coef))
+    assert bool((pad[0] == 7.0).all()) and bool((pad[-1] == 7.0).all())
 
 
 def test_k1_downdate_gives_nan(cuda):
@@ -63,6 +98,77 @@ def test_k1_downdate_gives_nan(cuda):
     want = k1.chol_update_cl_reference(Lt, vt, coef)
     assert bool(torch.isnan(got).any())
     assert torch.equal(torch.isnan(got), torch.isnan(want))
+    first = k1.chol_update(*_first(Lt, vt), coef).permute(1, 2, 0)
+    assert torch.equal(torch.isnan(first), torch.isnan(got))
+    assert torch.equal(torch.nan_to_num(first), torch.nan_to_num(got))
+
+
+def test_k1_takes_strided_views(cuda):
+    """Non-contiguous L and v (the other layout's views) give the bits of
+    the contiguous call."""
+    Lt, vt, coef = _chol_inputs(130, 10, cuda, seed=3)
+    L, v = _first(Lt, vt)
+    assert torch.equal(k1.chol_update(Lt.permute(2, 0, 1), vt.t(), coef),
+                       k1.chol_update(L, v, coef))
+    assert torch.equal(k1.chol_update_cl(L.permute(1, 2, 0), v.t(), coef),
+                       k1.chol_update_cl(Lt, vt, coef))
+
+
+@pytest.mark.parametrize("thinning", [1, 5])
+@pytest.mark.parametrize("name", ["arwmh", "rwm"])
+def test_graph_run_equals_eager_run(cuda, name, thinning):
+    """run_mcmc from the CUDA graph gives the eager loop's draws, extras and
+    last state bit for bit from the same seed (warmup 13: whole blocks and
+    single steps), leaves the caller's init_state as it was, counts K1 once
+    per step, and moves the generator on as the eager loop does."""
+    t = amt.eight_schools_noncentered()
+    k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=13)) if name == "arwmh" \
+        else amt.rwm(t, step_size=0.3)
+    C, W, N = 256, 13, 40
+    fields = ("potential_energy", "as_change")
+    init = k.init(torch.Generator(cuda).manual_seed(5), n_chains=C)
+    kept = [x.clone() for x in state_tensors(init)]
+    out, gens, counts = [], [], []
+    for eager in (True, False):
+        g = torch.Generator(cuda).manual_seed(6)
+        k1.launches = 0
+        out.append(amt.run_mcmc(k, g, W, N, thinning=thinning, n_chains=C,
+                                init_state=init, extra_fields=fields,
+                                eager=eager))
+        torch.cuda.synchronize()
+        counts.append(k1.launches)
+        gens.append(torch.rand(4, generator=g, device=cuda))
+    (want, want_x, want_last), (got, got_x, got_last) = out
+    assert torch.equal(got, want)
+    for f in fields:
+        assert torch.equal(got_x[f], want_x[f])
+    for a, b in zip(state_tensors(got_last), state_tensors(want_last)):
+        assert torch.equal(a, b)
+    for a, b in zip(state_tensors(init), kept):
+        assert torch.equal(a, b)
+    assert counts[0] == counts[1] == (W + N if name == "arwmh" else 0)
+    assert torch.equal(gens[0], gens[1])
+    # successive replays propose anew: frames differ from one another
+    assert not torch.equal(got[0], got[1]) and not torch.equal(got[1], got[2])
+    assert int(got_last.i) == W + N
+
+
+def test_graph_refuses_a_potential_that_reads_the_host(cuda):
+    import dataclasses as dc
+    base = amt.eight_schools_noncentered()
+
+    def potential(x):
+        pe = base.potential_fn(x)
+        return pe + 0.0 * pe.max().item()
+
+    k = amt.arwmh(dc.replace(base, potential_fn=potential,
+                             device_potential=None))
+    with pytest.raises(RuntimeError, match=r"arwmh\.step.*eager=True"):
+        amt.run_mcmc(k, torch.Generator(cuda).manual_seed(0), 4, 8,
+                     n_chains=8)
+    samples, _, _ = amt.run_mcmc(k, torch.Generator(cuda).manual_seed(0), 4,
+                                 8, n_chains=8, eager=True)
+    assert samples.is_cuda and bool(torch.isfinite(samples).all())
 
 
 def test_k2_matches_plain_version_injected(cuda):
@@ -377,11 +483,21 @@ def test_eight_schools_main_path_fits_the_card_in_one_wave(cuda, lib, name):
 
 
 def test_k1_layout_at_every_d(cuda):
-    """K1 reports its layout at every d it takes: one thread per chain, in
-    blocks of whole warps, with room for at least one block per SM."""
+    """K1 reports the layout of both kernels at every d it takes, for a
+    few thousand chains and for hundreds of thousands: a group of lanes
+    that divides a warp per chain, blocks of whole warps, room for at least
+    one block per SM; the main path's 4096 chains at d = 10 put a block of
+    the chains-first kernel on at least 128 SMs."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for d in range(1, 33):
-        lanes, threads, per_sm = _build.layout("chol_update", f"d{d}")
-        assert lanes == 1 and threads % 32 == 0 and per_sm > 0
+        for tag in (f"d{d}", f"cl_d{d}"):
+            for C in (4096, 417792):
+                lanes, threads, per_sm = _build.layout("chol_update", tag, C)
+                assert 32 % lanes == 0 and threads % 32 == 0 and per_sm > 0
+    lanes, threads, _ = _build.layout("chol_update", "d10", 4096)
+    assert min(sms, -(-4096 * lanes // threads)) >= 128
+    # one thread per chain once the chains alone fill the card
+    assert _build.layout("chol_update", "d10", 417792)[0] == 1
 
 
 @pytest.mark.parametrize("name", EIGHT_SCHOOLS)

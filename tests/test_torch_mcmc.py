@@ -191,3 +191,185 @@ def test_eight_schools_mu_within_jax_monte_carlo_band(fused):
     assert abs(t_mean - j_mean) < 4.0 * np.hypot(t_se, j_se), (
         t_mean, t_se, j_mean, j_se)
     assert 0.15 < float(last.mean_accept_prob.mean()) < 0.35
+
+
+# ---- the blocks of steps that a CUDA device runs from a graph ------------
+
+from adaptive_mcmc_tpu_torch.infer import mcmc as tmcmc  # noqa: E402
+
+
+def _kernel(name):
+    t = amt.eight_schools_noncentered()
+    if name == "arwmh":
+        return amt.arwmh(t, amt.ARWMHConfig(num_warmup=13))
+    return amt.rwm(t, step_size=0.3)
+
+
+@pytest.fixture
+def blocks_on_cpu(monkeypatch):
+    """run_mcmc takes its blocks of steps (StepBlocks, static buffers) on
+    the CPU, the graph replaced by a plain call of the block function; the
+    fixture's list collects the length of every block that was 'captured'."""
+    captured = []
+
+    def plain(run_block, generator, kernel):
+        captured.append(kernel.name)
+        return run_block
+
+    monkeypatch.setattr(tmcmc, "_on_card", lambda state: True)
+    monkeypatch.setattr(tmcmc, "_capture", plain)
+    return captured
+
+
+@pytest.mark.parametrize("thinning", [1, 5])
+@pytest.mark.parametrize("name", ["arwmh", "rwm"])
+def test_step_blocks_give_the_eager_draws(blocks_on_cpu, name, thinning):
+    """Warmup 13 is no multiple of the block of 5: the first step, which
+    always runs eagerly, two blocks and two single steps.  Samples, extras
+    and the last state equal the eager loop's bit for bit, and the caller's
+    init_state is left as it was."""
+    k = _kernel(name)
+    C, W, N = 4, 13, 20
+    fields = ("potential_energy", "as_change")
+    init = k.init(_gen(5), n_chains=C)
+    kept = [t.clone() for t in tmcmc.state_tensors(init)]
+    want, want_x, want_last = amt.run_mcmc(
+        k, _gen(6), W, N, thinning=thinning, n_chains=C, init_state=init,
+        extra_fields=fields, eager=True)
+    assert not blocks_on_cpu
+    got, got_x, got_last = amt.run_mcmc(
+        k, _gen(6), W, N, thinning=thinning, n_chains=C, init_state=init,
+        extra_fields=fields)
+    assert blocks_on_cpu == [name]
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    for f in fields:
+        np.testing.assert_array_equal(got_x[f].numpy(), want_x[f].numpy())
+    for a, b in zip(tmcmc.state_tensors(got_last),
+                    tmcmc.state_tensors(want_last)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert int(got_last.i) == W + N
+    for a, b in zip(tmcmc.state_tensors(init), kept):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # the frames are copies: none aliases a buffer of the last state
+    ptrs = {t.data_ptr() for t in tmcmc.state_tensors(got_last)}
+    assert got[-1].data_ptr() not in ptrs
+    # successive frames differ (a replay that repeated one draw would not)
+    if name == "arwmh":
+        assert not np.array_equal(got[0].numpy(), got[-1].numpy())
+
+
+def test_step_blocks_are_not_taken_on_the_cpu():
+    """Without the fixture a CPU run is the eager loop; ASSS's step is not
+    declared capturable, ARWMH's and RWM's are."""
+    t = amt.eight_schools_noncentered()
+    assert amt.arwmh(t).graph_step and amt.rwm(t).graph_step
+    assert not amt.asss(t).graph_step
+    k = amt.arwmh(t)
+    a, _, _ = amt.run_mcmc(k, _gen(7), 5, 10, n_chains=2)
+    b, _, _ = amt.run_mcmc(k, _gen(7), 5, 10, n_chains=2, eager=True)
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("block,counts", [
+    (1, (3,)), (10, (10, 10)), (64, (100,)), (64, (5, 64, 7)),
+    (4, (1, 1, 1)), (7, (0, 13))])
+def test_step_blocks_advance_any_count(blocks_on_cpu, block, counts):
+    """advance(n) for any n and block: the first step eagerly, whole blocks
+    from the one capture, the rest eagerly; the state equals that of as many
+    eager steps bit for bit."""
+    k = _kernel("arwmh")
+    init = k.init(_gen(3), n_chains=3)
+    g = _gen(4)
+    want = init
+    for _ in range(sum(counts)):
+        want = k.step(want, g)
+    blocks = tmcmc.StepBlocks(k, _gen(4), init, block)
+    for n in counts:
+        got = blocks.advance(n)
+    assert blocks_on_cpu == ["arwmh"]
+    assert int(got.i) == sum(counts)
+    for a, b in zip(tmcmc.state_tensors(got), tmcmc.state_tensors(want)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _host_reading_target(how):
+    base = amt.eight_schools_noncentered()
+
+    def potential(x):
+        pe = base.potential_fn(x)
+        if how == "item":
+            return pe + 0.0 * pe.max().item()
+        if how == "bool":
+            return pe if bool((pe > -1e30).all()) else pe * 2
+        return pe + 0.0 * x[x[:, 0] > -1e30].sum()      # masked: data shape
+    import dataclasses
+    return dataclasses.replace(base, potential_fn=potential,
+                               device_potential=None)
+
+
+@pytest.mark.parametrize("how", ["item", "bool", "mask"])
+def test_a_potential_that_reads_the_host_is_refused(blocks_on_cpu, how):
+    """Capture is refused with a message that names the step and the eager
+    loop; nothing falls back quietly, the generator is left where it was,
+    and eager=True runs."""
+    k = amt.arwmh(_host_reading_target(how))
+    g = _gen(9)
+    before = g.get_state().clone()
+    with pytest.raises(RuntimeError, match=r"arwmh\.step.*eager=True"):
+        amt.run_mcmc(k, g, 4, 8, n_chains=3, init_position=torch.zeros(10))
+    assert torch.equal(g.get_state(), before)
+    assert not blocks_on_cpu
+    with pytest.raises(RuntimeError, match="eager=True"):
+        amt.MCMC(k, num_warmup=4, num_samples=8, n_chains=3).run(_gen(9))
+    samples, _, _ = amt.run_mcmc(k, _gen(9), 4, 8, n_chains=3, eager=True)
+    assert samples.shape == (8, 3, 10)
+    # the check alone, on a state of the caller's: a step it lets through
+    # is the plain step
+    state = k.init(_gen(1), n_chains=2)
+    with pytest.raises(RuntimeError, match="cannot capture"):
+        tmcmc.checked_step(k, state, _gen(1))
+    plain = amt.arwmh(amt.eight_schools_noncentered())
+    got = tmcmc.checked_step(plain, state, _gen(1))
+    want = plain.step(state, _gen(1))
+    for a, b in zip(tmcmc.state_tensors(got), tmcmc.state_tensors(want)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_a_captured_launch_counts_once_per_replay(monkeypatch):
+    """What a capture adds to a kernel's launch count is taken off again
+    and added once per replay (on the CPU with a stand-in for the graph);
+    a launch outside a capture stays counted."""
+    from adaptive_mcmc_tpu_torch.ops import cuda as ops_cuda
+    from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1
+
+    class FakeGraph:
+        def register_generator_state(self, g):
+            self.generator = g
+
+        def replay(self):
+            self.replays = getattr(self, "replays", 0) + 1
+
+    class fake_capture:
+        def __init__(self, graph):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", fake_capture)
+    monkeypatch.setattr(k1, "launches", 7)
+
+    def block():
+        k1.launches += 3            # three launches recorded at capture
+
+    g = _gen(0)
+    replay = tmcmc._capture(block, g, _kernel("arwmh"))
+    assert k1.launches == 7
+    replay()
+    replay()
+    assert k1.launches == 13
+    assert ops_cuda.launch_counts()["chol_update"] == 13
