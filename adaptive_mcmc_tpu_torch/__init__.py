@@ -3,9 +3,11 @@
 The JAX package ``adaptive_mcmc_tpu`` is the reference; this package runs
 the same samplers in PyTorch on an NVIDIA H100, with every TPU kernel of the
 path rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``).  It holds the
-samplers so far: batched adaptive ARWMH and ASSS on the PosteriorDB
+samplers so far: batched adaptive ARWMH, ASSS and SA on the PosteriorDB
 posteriors (eight schools noncentered and centered, kidiq, diamonds),
-driven by ``run_mcmc`` / ``MCMC``, with kernel K1 (the rank-1 Cholesky
+driven by ``run_mcmc`` / ``MCMC`` (and the resumable
+``run_mcmc_checkpointed`` and the log-grid ``collect_states_logscale``),
+with kernel K1 (the rank-1 Cholesky
 update), kernel K2 (the fused ARWMH sweep, ``ARWMHConfig(fused=True)``) and kernel
 K3 (the fused ASSS sweep, ``ASSSConfig(fused=True)``), both taking every
 posterior above, diamonds at d = 26 included.  It
@@ -44,14 +46,24 @@ from adaptive_mcmc_tpu_torch.kernels import (  # noqa: F401
     ASSSConfig,
     ASSSDraws,
     ASSSState,
+    SAAdaptState,
+    SAConfig,
+    SADraws,
+    SAState,
     arwmh,
     asss,
     rwm,
+    sa,
 )
 from adaptive_mcmc_tpu_torch.infer import (  # noqa: F401
     MCMC,
+    ChainHealthError,
+    check_chain_health,
+    collect_states_logscale,
     get_init_adapt_state,
+    ns_logscale,
     run_mcmc,
+    run_mcmc_checkpointed,
 )
 
 __version__ = "0.1.0"

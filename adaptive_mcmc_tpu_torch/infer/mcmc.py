@@ -8,7 +8,7 @@ buffers, so the unthinned draws never exist in memory.  Kernels with a
 instead.  Other kernels advance by their lockstep ``step``: where JAX jits
 the loop, PyTorch runs eagerly, so on a CUDA device ``run_mcmc`` captures a
 block of ``step`` calls into a CUDA graph and replays it
-(:class:`StepBlocks`; kernels that declare ``graph_step``, ARWMH and RWM),
+(:class:`StepBlocks`; kernels that declare ``graph_step``, ARWMH, RWM and SA),
 and elsewhere the loop over steps is a Python loop.
 """
 
@@ -39,19 +39,19 @@ def register_kernel_factory(name: str, factory: Callable) -> None:
     _KERNEL_FACTORIES[name] = factory
 
 
-def _map_tensors(fn, tree, *others):
+def map_state(fn, tree, *others):
     """``fn`` over the tensors of a state (a NamedTuple of tensors and
     NamedTuples) and of ``others`` of the same structure."""
     if isinstance(tree, Tensor):
         return fn(tree, *others)
     if isinstance(tree, tuple):
-        parts = [_map_tensors(fn, *leaves) for leaves in zip(tree, *others)]
+        parts = [map_state(fn, *leaves) for leaves in zip(tree, *others)]
         return type(tree)(*parts) if hasattr(tree, "_fields") \
             else type(tree)(parts)
     raise TypeError(
-        f"a state captured into a CUDA graph holds tensors only, got "
-        f"{type(tree).__name__}: a Python number would keep its value at "
-        f"capture in every replay")
+        f"a state holds tensors only, got {type(tree).__name__}: a Python "
+        f"number would keep its value at capture in every replay of a CUDA "
+        f"graph, and has no place in a checkpoint")
 
 
 class _HostRead(RuntimeError):
@@ -104,7 +104,7 @@ def _on_card(state) -> bool:
 def state_tensors(state) -> list:
     """The tensors of a state, in field order."""
     out = []
-    _map_tensors(lambda t: out.append(t), state)
+    map_state(lambda t: out.append(t), state)
     return out
 
 
@@ -144,7 +144,7 @@ class StepBlocks:
 
     def __init__(self, kernel, generator, state, block: int):
         self.kernel, self.generator, self.block = kernel, generator, block
-        self.state = _map_tensors(torch.clone, state)
+        self.state = map_state(torch.clone, state)
         self._replay = None
 
     def _steps(self, n: int, step=None) -> None:
@@ -152,7 +152,7 @@ class StepBlocks:
         s = self.state
         for _ in range(n):
             s = step(s, self.generator)
-        _map_tensors(lambda dst, src: dst if dst is src else dst.copy_(src),
+        map_state(lambda dst, src: dst if dst is src else dst.copy_(src),
                      self.state, s)
 
     def advance(self, n: int):
@@ -166,6 +166,27 @@ class StepBlocks:
         if n % self.block:
             self._steps(n % self.block)
         return self.state
+
+
+def advancer(kernel, generator, state, block: int, eager: bool = False):
+    """``advance(state, n) -> state``: ``n`` steps of ``kernel`` as
+    :func:`run_mcmc` takes them.  Through ``step_n`` where the kernel has
+    one; from a CUDA graph of ``block`` steps (:class:`StepBlocks`) where
+    its ``step`` can be captured and ``state`` lies on the card, unless
+    ``eager``; otherwise in a Python loop over ``step``.  Pass each call
+    the state the previous one returned."""
+    if kernel.step_n is not None:
+        return lambda s, n: kernel.step_n(s, n, generator)
+    if kernel.graph_step and not eager and _on_card(state):
+        blocks = StepBlocks(kernel, generator, state, block)
+        return lambda s, n: blocks.advance(n)
+
+    def loop(s, n: int):
+        for _ in range(n):
+            s = kernel.step(s, generator)
+        return s
+
+    return loop
 
 
 def run_mcmc(
@@ -233,26 +254,24 @@ def run_mcmc(
             return ()
         return noise[t0:t0 + n], unif[t0:t0 + n]
 
-    blocks = None
-    if (kernel.step_n is None and kernel.graph_step and noise is None
-            and not eager and _on_card(state)):
-        blocks = StepBlocks(kernel, generator, state,
-                            min(thinning, MAX_GRAPH_STEPS))
+    if noise is None:
+        steps = advancer(kernel, generator, state,
+                         min(thinning, MAX_GRAPH_STEPS), eager)
 
-    def advance(state, t0: int, n: int):
-        if kernel.step_n is not None:
-            return kernel.step_n(state, n, generator, *draws(t0, n))
-        if blocks is not None:
-            return blocks.advance(n)
-        for t in range(t0, t0 + n):
-            state = kernel.step(state, generator,
-                                *(a[0] for a in draws(t, 1)))
-        return state
+        def advance(state, t0: int, n: int):
+            return steps(state, n)
+    else:
+        def advance(state, t0: int, n: int):
+            if kernel.step_n is not None:
+                return kernel.step_n(state, n, generator, *draws(t0, n))
+            for t in range(t0, t0 + n):
+                state = kernel.step(state, generator, noise[t], unif[t])
+            return state
 
     if num_warmup:
         state = advance(state, 0, num_warmup)
 
-    if collect_n is not None:
+    if collect_n is not None and num_collect:
         state, bufs = collect_n(state, num_collect, thinning, generator,
                                 *draws(num_warmup, num_samples))
         samples = bufs[sample_field].transpose(0, 1)

@@ -1,4 +1,4 @@
-"""Carrying ARWMH and ASSS state between the JAX package and the port.
+"""Carrying ARWMH, ASSS and SA state between the JAX package and the port.
 
 This system has no weights: what must match between the two packages is the
 kernel state and the target's data.  Targets of both packages take their
@@ -14,6 +14,8 @@ kernel state crosses as numpy arrays:
   leaves.
 * :func:`asss_state_from_numpy` and :func:`asss_state_to_numpy` do the same
   for ``ASSSState``, whose JAX ``rng_key`` is dropped likewise.
+* :func:`sa_state_from_numpy` turns an ``SAState`` (numpy leaves) into the
+  port's, dropping ``rng_key`` likewise.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 
 from adaptive_mcmc_tpu_torch.kernels.arwmh import ARWMHAdaptState, ARWMHState
 from adaptive_mcmc_tpu_torch.kernels.asss import ASSSAdaptState, ASSSState
+from adaptive_mcmc_tpu_torch.kernels.sa import SAAdaptState, SAState
 
 
 def _f32(a, device):
@@ -85,4 +88,21 @@ def asss_state_to_numpy(state: ASSSState) -> ASSSState:
         potential_energy=_host(state.potential_energy),
         adapt_state=ASSSAdaptState(_host(a.loc), _host(a.scale)),
         as_change=_host(state.as_change),
+    )
+
+
+def sa_state_from_numpy(state, device=None) -> SAState:
+    a = state.adapt_state
+    return SAState(
+        i=_i32(state.i, device),
+        position=_f32(state.position, device),
+        potential_energy=_f32(state.potential_energy, device),
+        accept_prob=_f32(state.accept_prob, device),
+        mean_accept_prob=_f32(state.mean_accept_prob, device),
+        diverging=torch.tensor(np.asarray(state.diverging, bool),
+                               device=device),
+        adapt_state=SAAdaptState(
+            zs=_f32(a.zs, device), pes=_f32(a.pes, device),
+            loc=_f32(a.loc, device), scale=_f32(a.scale, device),
+        ),
     )

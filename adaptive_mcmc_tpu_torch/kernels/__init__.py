@@ -13,8 +13,16 @@ from adaptive_mcmc_tpu_torch.kernels.asss import (  # noqa: F401
     ASSSState,
     asss,
 )
+from adaptive_mcmc_tpu_torch.kernels.sa import (  # noqa: F401
+    SAAdaptState,
+    SAConfig,
+    SADraws,
+    SAState,
+    sa,
+)
 
 from adaptive_mcmc_tpu_torch.infer.mcmc import register_kernel_factory
 
 register_kernel_factory("arwmh", arwmh)
 register_kernel_factory("asss", asss)
+register_kernel_factory("sa", sa)

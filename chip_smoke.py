@@ -21,8 +21,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every d from 1 to 32, the NaN of an indefinite downdate, strict
    triangularity; card times of both kernels, the plain version and
    torch.linalg.cholesky_ex of the re-formed L Lᵀ + coef v vᵀ at
-   (4096, 10), (1024, 26) and (417792, 10), the batch of 4096 chains x 102
-   the SA sampler brings (CUDA events around CUDA-graph replays);
+   (4096, 10), (1024, 26), (417792, 10), the batch of 4096 chains x 102
+   the SA sampler brings, and the SA path's (1024, 10) and (104448, 10)
+   (CUDA events around CUDA-graph replays);
 3. K2 (csrc/arwmh_fused.cu), each instantiation against its plain version
    on injected draws, 16 steps with frames: eight schools noncentered and
    centered at (4096, 10), kidiq at (4096, 4), diamonds at (1024, 26);
@@ -52,11 +53,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    through K3 and K2 (finite draws: its funnel makes a short posterior
    gate unreliable);
    every path: posterior checks, launch counts (all counts set to 0 just
-   before the path and read just after it) and chain-iters/s; then the
-   host time per step, kernels per step and device idle share of the ARWMH
-   lockstep step, eager and from the graph (torch.profiler; last, because
-   the profiler once on slows every later launch of the process);
-8. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
+   before the path and read just after it) and chain-iters/s;
+8. SA through K1: the graph run of 100 + 100 steps at 1024 chains against
+   the eager loop bit for bit (3 K1 launches per step in both), then
+   MCMC(sa(eight_schools_noncentered()), num_warmup=2500,
+   num_samples=25000, thinning=10, n_chains=1024) against the quadrature
+   truths of mu and log tau, K1 launched 3 x 27500 times; the checkpointed
+   driver (ARWMH on std_normal(3), 64 chains) interrupted after its first
+   chunk and resumed against run_mcmc bit for bit, and
+   collect_states_logscale(n_pow=4)'s grid; the port's bench
+   (adaptive_mcmc_tpu_torch.bench.main(): four numeric cells, NUTS null);
+   one step of entry(); then the host time per step, kernels per step
+   (the six largest by device time) and device idle share of the ARWMH
+   lockstep step and the SA step, eager and from the graph
+   (torch.profiler; last, because the profiler once on slows every later
+   launch of the process);
+9. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
    instantiation (with its
    lanes per chain and its bound: the larger of the bytes it must move over
    3.35 TB/s and its float operations over 67 TFLOP/s, counted from the
@@ -66,7 +78,6 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 
@@ -83,9 +94,11 @@ K1_ASSS_WARMUP, K1_ASSS_SAMPLES = 500, 1500
 # the graph run against the eager loop, and the profiled windows of each
 GRAPH_CHECK_WARMUP, GRAPH_CHECK_SAMPLES = 500, 1500
 PROFILE_STEPS = {"eager": 200, "graph": 1000}
-# K1's timed shapes: the main path's, diamonds', and the batch SA brings
-# (4096 chains x N = max(102, 2d) at d = 10)
-K1_SHAPES = ((4096, 10), (1024, 26), (417792, 10))
+# K1's timed shapes: the main path's, diamonds', the batch SA brings at 4096
+# chains (x N = max(102, 2d) at d = 10), and the two of the SA path at 1024
+# chains: the first update per chain, the next two per candidate
+K1_SA_SHAPES = ((1024, 10), (104448, 10))
+K1_SHAPES = ((4096, 10), (1024, 26), (417792, 10)) + K1_SA_SHAPES
 KERNELS = ("chol_update", "arwmh_fused", "asss_fused")
 # the slice: ASSS on diamonds through K3, sized from the JAX package's ASSS
 # on the CPU (64 chains, pipelined driver), which needed 200000 warmup
@@ -101,6 +114,14 @@ KIDIQ_MEAN_ERR, KIDIQ_SIGMA_REL = 0.1, 0.03   # in OLS s.e.; of the resid sd
 CENTERED_WARMUP, CENTERED_SAMPLES = 2000, 2000
 # kidiq posterior sd of log sigma, about (the s.e. of beta come from OLS)
 KIDIQ_LOG_SIGMA_SD = 0.035
+# the SA path: the bench's SA cell (1024 chains), run as tests/test_sa.py
+# runs it, against the 2-D quadrature truths of eight schools
+SA_CHAINS, SA_WARMUP, SA_SAMPLES = 1024, 2500, 25000
+SA_MU, SA_LOG_TAU, SA_MU_TOL, SA_LOG_TAU_TOL = 4.397, 0.8022, 0.2, 0.15
+SA_GRAPH_CHECK_WARMUP, SA_GRAPH_CHECK_SAMPLES = 100, 100
+SA_PROFILE_STEPS = {"eager": 50, "graph": 300}
+# the drivers on the card: ARWMH on std_normal(3) at 64 chains
+DRIVER_CHAINS, DRIVER_WARMUP, DRIVER_SAMPLES, DRIVER_CHUNK = 64, 100, 400, 200
 # the TPU kernels the instantiations replace
 K2_REPLACES = "adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426"
 K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
@@ -118,15 +139,6 @@ POTENTIAL_OPS = {
     "kidiq": 11 * 434 + 24,              # 11 per data row
     "diamonds": 830,                     # 576 of them in u = Lᵀ(b − b̂)
 }
-
-
-def card_name() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def require(ok, what: str) -> None:
@@ -262,7 +274,7 @@ def check_k1(k1, dev, card: str) -> dict:
     the chains-last kernel at the main path's (4096, 10), each with its own
     worst error over every shape checked."""
     worst = {"first": 0.0, "last": 0.0}
-    main_shapes = [(4096, 10), (1024, 26), (37, 5)]
+    main_shapes = [(4096, 10), (1024, 26), (37, 5), *K1_SA_SHAPES]
     for C, d in main_shapes + [(37, d) for d in range(1, 33) if d != 5]:
         Lt, vt, coef = chol_inputs(C, d, seed=C + d, dev=dev)
         got = k1.chol_update_cl(Lt, vt, coef)
@@ -568,22 +580,21 @@ def check_graph_equals_eager(amt, k1) -> None:
           f"{float(moved):.3f}")
 
 
-def profile_lockstep(amt, eager: bool, card: str) -> dict:
-    """Host time per step (host clock around a synchronised window, no
-    profiler), then the same, kernels per step and device busy per step of
-    a second window under torch.profiler.  The idle share is measured in
-    the profiled window alone: 1 - busy / host time, both of that window.
-    Beside it stands an estimate, not a measurement: the profiled window's
-    busy time against the first window's host time, which is the idle share
-    without the profiler if the kernels take the same time in both."""
+def profile_lockstep(kernel, label: str, n_chains: int, steps: int,
+                     eager: bool, card: str) -> dict:
+    """Host time per step of ``kernel``'s lockstep step (host clock around
+    a synchronised window, no profiler), then the same, kernels per step
+    and device busy per step of a second window under torch.profiler.  The
+    idle share is measured in the profiled window alone: 1 - busy / host
+    time, both of that window.  Beside it stands an estimate, not a
+    measurement: the profiled window's busy time against the first
+    window's host time, which is the idle share without the profiler if the
+    kernels take the same time in both."""
     from torch.profiler import ProfilerActivity, profile
     from adaptive_mcmc_tpu_torch.infer.mcmc import StepBlocks
     name = "eager" if eager else "graph"
-    steps = PROFILE_STEPS[name]
-    kernel = amt.arwmh(amt.eight_schools_noncentered(),
-                       amt.ARWMHConfig(num_warmup=NUM_WARMUP))
     g = torch.Generator("cuda").manual_seed(21)
-    state = kernel.init(g, n_chains=N_CHAINS)
+    state = kernel.init(g, n_chains=n_chains)
     if eager:
         def advance(n):
             nonlocal state
@@ -603,19 +614,24 @@ def profile_lockstep(amt, eager: bool, card: str) -> dict:
         advance(steps)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
-    n_kernels, busy_us = 0, 0.0
+    n_kernels, busy_us, by_name = 0, 0.0, []
     for ev in prof.key_averages():
         if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            n_kernels += ev.count
-            busy_us += getattr(ev, "self_device_time_total", None) \
+            us = getattr(ev, "self_device_time_total", None) \
                 or getattr(ev, "self_cuda_time_total", 0.0)
+            n_kernels += ev.count
+            busy_us += us
+            by_name.append((us, ev.count, ev.key))
+    for us, count, key in sorted(by_name, reverse=True)[:6]:
+        print(f"{label} {name}: {us / steps:.2f} µs and {count / steps:.1f} "
+              f"launches per step in {key[:90]}")
     require(n_kernels > 0 and busy_us > 0,
             "torch.profiler recorded no device activity")
     out = {"host_ms": host_ms, "traced_ms": traced_ms,
            "kernels": n_kernels / steps, "busy_us": busy_us / steps,
            "idle": 1.0 - busy_us / steps / (traced_ms * 1e3),
            "idle_unprofiled": 1.0 - busy_us / steps / (host_ms * 1e3)}
-    print(f"ARWMH lockstep {name}, {steps} steps at {N_CHAINS} chains: host "
+    print(f"{label} {name}, {steps} steps at {n_chains} chains: host "
           f"time per step {out['host_ms']:.4f} ms ({out['traced_ms']:.4f} "
           f"under the profiler), kernels per step {out['kernels']:.1f}, "
           f"device busy per step {out['busy_us']:.2f} µs, device idle share "
@@ -623,6 +639,23 @@ def profile_lockstep(amt, eager: bool, card: str) -> dict:
           f"without the profiler, busy time of that window over the host "
           f"time of the other: {out['idle_unprofiled']:.4f}) on {card}")
     return out
+
+
+def profile_pair(label: str, kernel, n_chains: int, steps: dict,
+                 card: str) -> None:
+    """profile_lockstep eager and from the graph, and one line of both."""
+    prof = {eager: profile_lockstep(kernel, label, n_chains,
+                                    steps["eager" if eager else "graph"],
+                                    eager, card)
+            for eager in (True, False)}
+    print(f"{label} step, eager -> graph: host time "
+          f"{prof[True]['host_ms']:.4f} -> {prof[False]['host_ms']:.4f} ms, "
+          f"kernels {prof[True]['kernels']:.1f} -> "
+          f"{prof[False]['kernels']:.1f}, idle share "
+          f"{prof[True]['idle']:.4f} -> {prof[False]['idle']:.4f} "
+          f"under the profiler (estimate without it "
+          f"{prof[True]['idle_unprofiled']:.4f} -> "
+          f"{prof[False]['idle_unprofiled']:.4f})")
 
 
 def run_asss_fused(amt, card: str):
@@ -767,6 +800,151 @@ def kidiq_gate(amt, draws, label: str) -> None:
             f"{label}: sigma median off by {sigma_rel}")
 
 
+def check_sa_graph_equals_eager(amt, k1) -> None:
+    """run_mcmc of the SA step at the SA path's width from the CUDA graph
+    and from the eager loop, same seed, same init_state: frames, extras,
+    last state and the generator's next draws bit for bit, K1 launched
+    three times per step in both."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors
+    W, N = SA_GRAPH_CHECK_WARMUP, SA_GRAPH_CHECK_SAMPLES
+    kernel = amt.sa(amt.eight_schools_noncentered(),
+                    amt.SAConfig(num_warmup=W))
+    init = kernel.init(torch.Generator("cuda").manual_seed(31),
+                       n_chains=SA_CHAINS)
+    runs = {}
+    for eager in (True, False):
+        k1.launches = 0
+        g = torch.Generator("cuda").manual_seed(32)
+        samples, extras, last = amt.run_mcmc(
+            kernel, g, W, N, thinning=THINNING, n_chains=SA_CHAINS,
+            init_state=init, extra_fields=("potential_energy",
+                                           "accept_prob"), eager=eager)
+        torch.cuda.synchronize()
+        runs[eager] = ([samples, *extras.values()], state_tensors(last),
+                       k1.launches, torch.rand(8, generator=g, device="cuda"))
+    e, gr = runs[True], runs[False]
+    require(e[2] == gr[2] == 3 * (W + N),
+            f"SA K1 launches: eager {e[2]}, graph {gr[2]}, steps {W + N}")
+    require(all(torch.equal(a, b) for a, b in zip(e[0], gr[0])),
+            "SA graph run's frames differ from the eager loop's")
+    require(all(torch.equal(a, b) for a, b in zip(e[1], gr[1])),
+            "SA graph run's last state differs from the eager loop's")
+    require(torch.equal(e[3], gr[3]),
+            "the generator stands elsewhere after the SA graph run")
+    print(f"SA graph run equals the eager run bit for bit: {N // THINNING} "
+          f"frames of {SA_CHAINS} chains with potential_energy and "
+          f"accept_prob, last state, the generator's next draws; K1 "
+          f"launches {gr[2]} = 3 x {W + N} steps in both")
+
+
+def run_sa(amt, k1, card: str):
+    """The SA path through K1: MCMC(sa(eight_schools_noncentered())) at
+    SA_CHAINS, against the quadrature truths of mu and log tau; returns
+    (chain-iters/s, K1 launches)."""
+    t = amt.eight_schools_noncentered()
+    mcmc = amt.MCMC(amt.sa(t), num_warmup=SA_WARMUP,
+                    num_samples=SA_SAMPLES, thinning=THINNING,
+                    n_chains=SA_CHAINS)
+    reset_launches(k1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc.run(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = k1.launches
+    mcmc.print_summary()
+    print(mcmc.diagnostics_str())
+    draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
+    require(draws.is_cuda, "SA draws not on the card")
+    require(tuple(draws.shape) == (SA_SAMPLES // THINNING, SA_CHAINS, t.dim),
+            f"SA draws shape {tuple(draws.shape)}")
+    require(bool(torch.isfinite(draws).all()), "non-finite SA draws")
+    mu = float(draws[..., 0].double().mean())
+    log_tau = float(draws[..., 1].double().mean())
+    steps = SA_WARMUP + SA_SAMPLES
+    rate = SA_CHAINS * steps / wall
+    print(f"SA (K1): mean mu {mu:.4f} (truth {SA_MU}), mean log tau "
+          f"{log_tau:.4f} (truth {SA_LOG_TAU}); K1 launches {launches} for "
+          f"{steps} steps; {rate:.1f} chain-iters/s ({SA_CHAINS} chains x "
+          f"{steps} steps in {wall:.3f} s, {wall / steps * 1e3:.4f} ms per "
+          f"step) on {card}")
+    require(abs(mu - SA_MU) < SA_MU_TOL, f"SA mu mean {mu}")
+    require(abs(log_tau - SA_LOG_TAU) < SA_LOG_TAU_TOL,
+            f"SA log tau mean {log_tau}")
+    require(launches == 3 * steps, f"SA K1 launches {launches}, 3 x {steps}")
+    return rate, launches
+
+
+def check_drivers(amt) -> None:
+    """ARWMH on std_normal(3) through the checkpointed driver, interrupted
+    after its first chunk and resumed with another generator seed, against
+    one uninterrupted run_mcmc: draws and last state bit for bit; and the
+    log-grid collection's iteration counts."""
+    import tempfile
+    from adaptive_mcmc_tpu_torch.infer import (
+        collect_states_logscale, ns_logscale, run_mcmc_checkpointed)
+    from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors
+    kernel = amt.arwmh(amt.std_normal(3))
+    W, N, C, chunk = DRIVER_WARMUP, DRIVER_SAMPLES, DRIVER_CHAINS, \
+        DRIVER_CHUNK
+
+    def gen(seed):
+        return torch.Generator("cuda").manual_seed(seed)
+
+    want, _, want_last = amt.run_mcmc(kernel, gen(41), W, N, thinning=4,
+                                      n_chains=C)
+    with tempfile.TemporaryDirectory() as d:
+        run_mcmc_checkpointed(kernel, gen(41), W, chunk, thinning=4,
+                              n_chains=C, checkpoint_dir=d, chunk_size=chunk)
+        got, _, got_last = run_mcmc_checkpointed(
+            kernel, gen(999), W, N, thinning=4, n_chains=C,
+            checkpoint_dir=d, chunk_size=chunk)
+    require(np.array_equal(want.cpu().numpy(), got),
+            "the resumed checkpointed run's draws differ")
+    require(all(torch.equal(a, b) for a, b in zip(state_tensors(want_last),
+                                                 state_tensors(got_last))),
+            "the resumed checkpointed run's last state differs")
+    states, last = collect_states_logscale(kernel, gen(42), n_pow=4,
+                                           n_chains=C)
+    require(torch.equal(states.i.cpu(), ns_logscale(4)),
+            "collect_states_logscale's grid")
+    require(states.position.is_cuda
+            and bool(torch.isfinite(states.position).all()),
+            "collect_states_logscale's states")
+    print(f"checkpointed ARWMH ({C} chains, {W} + {N} steps, chunks of "
+          f"{chunk}) interrupted after its first chunk and resumed equals "
+          f"run_mcmc bit for bit; collect_states_logscale(n_pow=4): "
+          f"{states.position.shape[0]} states, i equals ns_logscale(4), "
+          f"last i {int(last.i)}")
+
+
+def check_bench() -> dict:
+    """python -m adaptive_mcmc_tpu_torch.bench's main(): its JSON line,
+    four numeric cells, NUTS null, every ess_per_sec null."""
+    from adaptive_mcmc_tpu_torch import bench
+    res = bench.main()
+    cells = {c["metric"]: c for c in [res, *res["extras"]]}
+    for name, c in cells.items():
+        numeric = not name.startswith("nuts")
+        require((isinstance(c["value"], float) and c["value"] > 0)
+                if numeric else c["value"] is None,
+                f"bench cell {name}: {c['value']}")
+        require(c["ess_per_sec"] is None, f"bench {name} ess_per_sec")
+    return res
+
+
+def check_entry() -> None:
+    from adaptive_mcmc_tpu_torch.entry import entry
+    fn, (state,) = entry()
+    out = fn(state)
+    torch.cuda.synchronize()
+    require(out.position.is_cuda and int(out.i) == 1
+            and bool(torch.isfinite(out.position).all()),
+            "entry()'s step")
+    print(f"entry(): one ARWMH step of {out.position.shape[0]} chains on "
+          f"the card, finite")
+
+
 def layouts(amt, build, chains: dict) -> dict:
     """Lanes per chain of both K1 kernels at the main path's (4096, 10) and
     of every K2 and K3 instantiation, printed with the warps its check's
@@ -775,8 +953,9 @@ def layouts(amt, build, chains: dict) -> dict:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     d = amt.eight_schools_noncentered().dim
     todo = [("chol_update", f"d{d}", "first", N_CHAINS),
-            ("chol_update", f"cl_d{d}", "last", N_CHAINS),
-            ("chol_update", f"d{d}", "first at SA's batch", K1_SHAPES[2][0])]
+            ("chol_update", f"cl_d{d}", "last", N_CHAINS)]
+    todo += [("chol_update", f"d{d}", f"first at {C} chains", C)
+             for C, _ in K1_SHAPES[2:]]
     todo += [(lib, getattr(amt, name)().device_potential, name, None)
              for lib in ("arwmh_fused", "asss_fused") for name in TARGETS]
     out = {}
@@ -820,6 +999,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 1
     import adaptive_mcmc_tpu_torch as amt
+    from adaptive_mcmc_tpu_torch.bench import card_name
     from adaptive_mcmc_tpu_torch.ops.cuda import _build
     from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2
     from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3
@@ -940,26 +1120,33 @@ def main() -> int:
         f"{sampler} fused {name} {rate:.1f}"
         for (sampler, name), rate in rates.items()))
 
-    # the lockstep step under torch.profiler, after every timed path: once
+    elapsed("the slice")
+
+    # 8. SA through K1, the drivers, the bench and entry()
+    check_sa_graph_equals_eager(amt, k1)
+    _, k1_sa = run_sa(amt, k1, card)
+    elapsed("the SA path")
+    check_drivers(amt)
+    check_bench()
+    check_entry()
+    elapsed("the drivers, the bench and entry()")
+
+    # the lockstep steps under torch.profiler, after every timed path: once
     # the profiler has been on, every later launch of the process costs the
     # host more
-    elapsed("the slice")
-    prof = {eager: profile_lockstep(amt, eager, card)
-            for eager in (True, False)}
-    print(f"ARWMH lockstep step, eager -> graph: host time "
-          f"{prof[True]['host_ms']:.4f} -> {prof[False]['host_ms']:.4f} ms, "
-          f"kernels {prof[True]['kernels']:.1f} -> "
-          f"{prof[False]['kernels']:.1f}, idle share "
-          f"{prof[True]['idle']:.4f} -> {prof[False]['idle']:.4f} "
-          f"under the profiler (estimate without it "
-          f"{prof[True]['idle_unprofiled']:.4f} -> "
-          f"{prof[False]['idle_unprofiled']:.4f})")
+    profile_pair("ARWMH lockstep",
+                 amt.arwmh(amt.eight_schools_noncentered(),
+                           amt.ARWMHConfig(num_warmup=NUM_WARMUP)),
+                 N_CHAINS, PROFILE_STEPS, card)
+    profile_pair("SA", amt.sa(amt.eight_schools_noncentered(),
+                              amt.SAConfig(num_warmup=SA_WARMUP)),
+                 SA_CHAINS, SA_PROFILE_STEPS, card)
 
-    # 8. results
-    # K1's chains-first kernel ran the ARWMH lockstep path, its chains-last
-    # kernel the pipelined ASSS machine
+    # 9. results
+    # K1's chains-first kernel ran the ARWMH lockstep path and the SA path,
+    # its chains-last kernel the pipelined ASSS machine
     kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
-                            k1_main, lanes[("chol_update", "first")],
+                            k1_main + k1_sa, lanes[("chol_update", "first")],
                             k1_res["first"]),
                kernel_entry("chol_update_cl", "chol_update.cu", K1_REPLACES,
                             k1_asss[False][1],

@@ -533,3 +533,62 @@ def test_k3_chains_of_one_warp_land_on_different_iterations(cuda, name):
         torch.testing.assert_close(got[k], want[k], rtol=2e-5, atol=2e-6)
     for k in wf:
         torch.testing.assert_close(gf[k], wf[k], rtol=2e-5, atol=2e-6)
+
+
+def test_sa_step_on_the_card_matches_the_cpu(cuda):
+    """One SA step on the card (three K1 launches) against the same step on
+    the CPU (K1's plain version) from the same state and draws."""
+    t = amt.eight_schools_noncentered()
+    k = amt.sa(t)
+    g = torch.Generator().manual_seed(8)
+    st = k.init(g, n_chains=64)
+    N = st.adapt_state.zs.shape[1]
+    draws = amt.SADraws(torch.randn((64, t.dim), generator=g),
+                        torch.rand((64, N + 1), generator=g),
+                        torch.randint(0, N, (64,), generator=g))
+    want = k.step(st, None, draws)
+    before = k1.launches
+    got = k.step(amt.SAState(*[
+        x.to(cuda) if isinstance(x, torch.Tensor) else
+        type(x)(*[y.to(cuda) for y in x]) for x in st]), None,
+        amt.SADraws(*[x.to(cuda) for x in draws]))
+    torch.cuda.synchronize()
+    assert k1.launches == before + 3
+    for a, b in zip(state_tensors(got), state_tensors(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5,
+                                   equal_nan=True)
+
+
+def test_sa_graph_run_equals_eager_run(cuda):
+    k = amt.sa(amt.eight_schools_noncentered(), amt.SAConfig(num_warmup=7))
+    C, W, N = 128, 7, 20
+    init = k.init(torch.Generator(cuda).manual_seed(5), n_chains=C)
+    out, counts = [], []
+    for eager in (True, False):
+        g = torch.Generator(cuda).manual_seed(6)
+        k1.launches = 0
+        samples, extras, last = amt.run_mcmc(
+            k, g, W, N, thinning=5, n_chains=C, init_state=init,
+            extra_fields=("accept_prob",), eager=eager)
+        torch.cuda.synchronize()
+        counts.append(k1.launches)
+        out.append([samples, extras["accept_prob"], *state_tensors(last),
+                    torch.rand(4, generator=g, device=cuda)])
+    assert counts == [3 * (W + N)] * 2
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_checkpointed_resume_on_the_card(cuda, tmp_path):
+    from adaptive_mcmc_tpu_torch.infer import run_mcmc_checkpointed
+    k = amt.arwmh(amt.std_normal(3))
+    want, _, _ = amt.run_mcmc(k, torch.Generator(cuda).manual_seed(1), 10,
+                              60, thinning=3, n_chains=32)
+    run_mcmc_checkpointed(k, torch.Generator(cuda).manual_seed(1), 10, 30,
+                          thinning=3, n_chains=32, checkpoint_dir=tmp_path,
+                          chunk_size=30)
+    got, _, last = run_mcmc_checkpointed(
+        k, torch.Generator(cuda).manual_seed(2), 10, 60, thinning=3,
+        n_chains=32, checkpoint_dir=tmp_path, chunk_size=30)
+    assert last.position.is_cuda
+    np.testing.assert_array_equal(got, want.cpu().numpy())
