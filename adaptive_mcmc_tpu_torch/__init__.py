@@ -3,7 +3,7 @@
 The JAX package ``adaptive_mcmc_tpu`` is the reference; this package runs
 the same samplers in PyTorch on an NVIDIA H100, with every TPU kernel of the
 path rewritten by hand in CUDA C++ for ``sm_90a`` (``csrc/``).  It holds the
-samplers so far: batched adaptive ARWMH, ASSS and SA on the PosteriorDB
+samplers so far: batched adaptive ARWMH, ASSS, SA and NUTS on the PosteriorDB
 posteriors (eight schools noncentered and centered, kidiq, diamonds),
 driven by ``run_mcmc`` / ``MCMC`` (and the resumable
 ``run_mcmc_checkpointed`` and the log-grid ``collect_states_logscale``),
@@ -46,12 +46,17 @@ from adaptive_mcmc_tpu_torch.kernels import (  # noqa: F401
     ASSSConfig,
     ASSSDraws,
     ASSSState,
+    NUTSAdaptState,
+    NUTSConfig,
+    NUTSDraws,
+    NUTSState,
     SAAdaptState,
     SAConfig,
     SADraws,
     SAState,
     arwmh,
     asss,
+    nuts,
     rwm,
     sa,
 )

@@ -7,10 +7,12 @@ counts, step counts and each kernel's default config: ARWMH on eight
 schools at 4096 chains (the lockstep step through K1, replayed from a CUDA
 graph), ASSS on eight schools at 4096 chains and on diamonds at 1024 (the
 pipelined machine, K1 chains last), SA on eight schools at 1024 chains
-(three K1 launches per step, from a CUDA graph) and NUTS, which is not
-ported yet and prints ``null``.  A cell times ``n_blocks`` blocks of
-``timed_steps`` steps after one warm run of ``warmup_steps`` and one
-untimed block, on the host clock closed by ``torch.cuda.synchronize()``.
+(three K1 launches per step, from a CUDA graph) and NUTS on eight schools
+at 1024 chains (the pipelined machine, blocks of trips replayed from a
+CUDA graph; its default config but ``num_warmup=400``).  A cell times
+``n_blocks`` blocks of ``timed_steps`` steps after one warm run of
+``warmup_steps`` and one untimed block, on the host clock closed by
+``torch.cuda.synchronize()``.
 
 Prints one JSON line: ``bench.py``'s fields plus ``card`` (nvidia-smi's
 name and power limit).  ``vs_baseline`` divides by the reference's
@@ -83,18 +85,13 @@ def time_kernel(kernel, n_chains: int, *, warmup_steps: int,
 
 
 def assemble(rates: dict, card: str) -> dict:
-    """The JSON line from the measured rates (chain-iters/s by cell name;
-    a rate of ``None`` is a cell not ported yet)."""
+    """The JSON line from the measured rates (chain-iters/s by cell
+    name)."""
 
-    def cell(metric: str, rate, base: float) -> dict:
-        out = {"metric": metric,
-               "value": None if rate is None else round(rate, 1),
-               "unit": "chain_iters_per_sec",
-               "vs_baseline": None if rate is None else round(rate / base, 2),
-               "ess_per_sec": None}
-        if rate is None:
-            out["note"] = "not ported yet (ROADMAP A11)"
-        return out
+    def cell(metric: str, rate: float, base: float) -> dict:
+        return {"metric": metric, "value": round(rate, 1),
+                "unit": "chain_iters_per_sec",
+                "vs_baseline": round(rate / base, 2), "ess_per_sec": None}
 
     extras = [
         cell("asss_eight_schools_4096chains", rates["asss"], BASE_ASSS_ES),
@@ -140,7 +137,10 @@ def main(device="cuda") -> dict:
             "asss": time_kernel(
                 amt.asss(es, amt.ASSSConfig(num_warmup=0)), 4096,
                 warmup_steps=500, timed_steps=500, device=device),
-            "nuts": None,
+            "nuts": time_kernel(
+                amt.nuts(es, amt.NUTSConfig(num_warmup=400)), 1024,
+                warmup_steps=400, timed_steps=100,
+                accept_field="mean_accept_prob", device=device),
             "asss_diamonds": time_kernel(
                 amt.asss(diamonds, amt.ASSSConfig(num_warmup=0)), 1024,
                 warmup_steps=300, timed_steps=300, device=device),

@@ -3,13 +3,16 @@
 Counterpart of ``adaptive_mcmc_tpu/infer/mcmc.py``: ``run_mcmc`` runs the
 warmup, then a thinned collection into preallocated ``(num_collect, C, ...)``
 buffers, so the unthinned draws never exist in memory.  Kernels with a
-``step_n`` driver (ASSS, fused ARWMH) advance through it, and kernels with a
-``collect_n`` driver (ASSS, fused ARWMH) record the frames inside it
-instead.  Other kernels advance by their lockstep ``step``: where JAX jits
-the loop, PyTorch runs eagerly, so on a CUDA device ``run_mcmc`` captures a
-block of ``step`` calls into a CUDA graph and replays it
-(:class:`StepBlocks`; kernels that declare ``graph_step``, ARWMH, RWM and SA),
-and elsewhere the loop over steps is a Python loop.
+``step_n`` driver (ASSS, fused ARWMH, NUTS) advance through it, and kernels
+with a ``collect_n`` driver (ASSS, fused ARWMH, NUTS) record the frames
+inside it instead; NUTS's machine replays blocks of its trips from a CUDA
+graph on the card (``eager=True``, which every ``step_n`` / ``collect_n``
+takes, asks for the Python loop over the same blocks).  Other kernels
+advance by their lockstep ``step``: where JAX jits the loop, PyTorch runs
+eagerly, so on a CUDA device ``run_mcmc`` captures a block of ``step``
+calls into a CUDA graph and replays it (:class:`StepBlocks`; kernels that
+declare ``graph_step``, ARWMH, RWM and SA), and elsewhere the loop over
+steps is a Python loop.
 """
 
 from __future__ import annotations
@@ -73,12 +76,15 @@ class _NoHostRead(TorchDispatchMode):
 
 
 def _capture_error(kernel, why) -> RuntimeError:
+    """The refusal of a capture: ``kernel`` is the kernel whose ``step``
+    was captured, or the label of what was (``"nuts.step_n"``)."""
+    what = kernel if isinstance(kernel, str) else f"{kernel.name}.step"
     return RuntimeError(
-        f"run_mcmc cannot capture {kernel.name}.step into a CUDA graph: "
+        f"run_mcmc cannot capture {what} into a CUDA graph: "
         f"{why}.  A step whose potential_fn reads a value on the host "
         f"(.item(), bool(tensor), int(tensor)) or makes a shape that "
         f"depends on data runs only in the eager loop: pass eager=True to "
-        f"run_mcmc or MCMC.run.")
+        f"run_mcmc or MCMC.run (or to a kernel's step_n / collect_n).")
 
 
 def checked_step(kernel, state, generator):
@@ -171,12 +177,13 @@ class StepBlocks:
 def advancer(kernel, generator, state, block: int, eager: bool = False):
     """``advance(state, n) -> state``: ``n`` steps of ``kernel`` as
     :func:`run_mcmc` takes them.  Through ``step_n`` where the kernel has
-    one; from a CUDA graph of ``block`` steps (:class:`StepBlocks`) where
+    one (passing it ``eager``); from a CUDA graph of ``block`` steps
+    (:class:`StepBlocks`) where
     its ``step`` can be captured and ``state`` lies on the card, unless
     ``eager``; otherwise in a Python loop over ``step``.  Pass each call
     the state the previous one returned."""
     if kernel.step_n is not None:
-        return lambda s, n: kernel.step_n(s, n, generator)
+        return lambda s, n: kernel.step_n(s, n, generator, eager=eager)
     if kernel.graph_step and not eager and _on_card(state):
         blocks = StepBlocks(kernel, generator, state, block)
         return lambda s, n: blocks.advance(n)
@@ -218,10 +225,10 @@ def run_mcmc(
     (``Target.init_position``): a CUDA generator puts it on the card.
     There, a kernel without ``step_n`` whose ``step`` can be captured
     (``Kernel.graph_step``) runs its steps from a CUDA graph, with the draws
-    of the eager loop; ``init_state`` is never written.  A step that cannot
+    of the eager loop, and NUTS's ``step_n`` / ``collect_n`` its machine's
+    blocks of trips; ``init_state`` is never written.  A step that cannot
     be captured after all raises.  ``eager=True`` asks for the Python loop
-    over ``step`` instead; a CPU run and a run with injected draws always
-    take it.
+    instead; a CPU run and a run with injected draws always take it.
     """
     if num_samples % thinning:
         raise ValueError("num_samples must divide by thinning")
@@ -273,7 +280,7 @@ def run_mcmc(
 
     if collect_n is not None and num_collect:
         state, bufs = collect_n(state, num_collect, thinning, generator,
-                                *draws(num_warmup, num_samples))
+                                *draws(num_warmup, num_samples), eager=eager)
         samples = bufs[sample_field].transpose(0, 1)
         extras = {f: bufs[f].transpose(0, 1) for f in extra_fields}
         return samples, extras, state
@@ -368,17 +375,20 @@ class MCMC:
         print(summary_table(self.kernel.target, self._samples))
 
     def diagnostics_str(self) -> str:
-        """Progress diagnostics: the acceptance rate (and step size) of
-        states that carry them, otherwise the iteration and the mean
-        potential energy (ASSS)."""
+        """Progress diagnostics: the acceptance rate (and step size: ARWMH's
+        λ, NUTS's dual-averaging ε) of states that carry them, otherwise
+        the iteration and the mean potential energy (ASSS)."""
         s = self.last_state
         if hasattr(s, "mean_accept_prob"):
             ap = float(torch.mean(s.mean_accept_prob))
             a = getattr(s, "adapt_state", None)
             if hasattr(a, "log_step_size"):
                 ss = float(torch.mean(torch.exp(a.log_step_size)))
-                return f"Acceptance rate: {ap:.2f}, Step size: {ss:.3f}"
-            return f"Acceptance rate: {ap:.2f}"
+            elif hasattr(a, "da"):
+                ss = float(torch.mean(torch.exp(a.da.log_eps)))
+            else:
+                return f"Acceptance rate: {ap:.2f}"
+            return f"Acceptance rate: {ap:.2f}, Step size: {ss:.3f}"
         return (f"Iteration: {int(s.i)}, Potential Energy: "
                 f"{float(torch.mean(s.potential_energy)):.2f}")
 

@@ -1,4 +1,4 @@
-"""Carrying ARWMH, ASSS and SA state between the JAX package and the port.
+"""Carrying ARWMH, ASSS, SA and NUTS state between the JAX package and the port.
 
 This system has no weights: what must match between the two packages is the
 kernel state and the target's data.  Targets of both packages take their
@@ -16,6 +16,9 @@ kernel state crosses as numpy arrays:
   for ``ASSSState``, whose JAX ``rng_key`` is dropped likewise.
 * :func:`sa_state_from_numpy` turns an ``SAState`` (numpy leaves) into the
   port's, dropping ``rng_key`` likewise.
+* :func:`nuts_state_from_numpy` and :func:`nuts_state_to_numpy` do the same
+  for ``NUTSState`` (its dual-averaging and Welford states included),
+  dropping ``rng_key`` likewise.
 """
 
 from __future__ import annotations
@@ -25,6 +28,12 @@ import torch
 
 from adaptive_mcmc_tpu_torch.kernels.arwmh import ARWMHAdaptState, ARWMHState
 from adaptive_mcmc_tpu_torch.kernels.asss import ASSSAdaptState, ASSSState
+from adaptive_mcmc_tpu_torch.kernels.nuts import (
+    DAState,
+    NUTSAdaptState,
+    NUTSState,
+    WelfordState,
+)
 from adaptive_mcmc_tpu_torch.kernels.sa import SAAdaptState, SAState
 
 
@@ -104,5 +113,44 @@ def sa_state_from_numpy(state, device=None) -> SAState:
         adapt_state=SAAdaptState(
             zs=_f32(a.zs, device), pes=_f32(a.pes, device),
             loc=_f32(a.loc, device), scale=_f32(a.scale, device),
+        ),
+    )
+
+
+def nuts_state_from_numpy(state, device=None) -> NUTSState:
+    a = state.adapt_state
+    return NUTSState(
+        i=_i32(state.i, device),
+        position=_f32(state.position, device),
+        potential_energy=_f32(state.potential_energy, device),
+        pe_grad=_f32(state.pe_grad, device),
+        mean_accept_prob=_f32(state.mean_accept_prob, device),
+        num_steps=_i32(state.num_steps, device),
+        diverging=torch.tensor(np.asarray(state.diverging, bool),
+                               device=device),
+        adapt_state=NUTSAdaptState(
+            da=DAState(*(_f32(x, device) for x in a.da)),
+            inv_mass=_f32(a.inv_mass, device),
+            chol_inv_mass=_f32(a.chol_inv_mass, device),
+            welford=WelfordState(*(_f32(x, device) for x in a.welford)),
+        ),
+    )
+
+
+def nuts_state_to_numpy(state: NUTSState) -> NUTSState:
+    a = state.adapt_state
+    return NUTSState(
+        i=_host(state.i),
+        position=_host(state.position),
+        potential_energy=_host(state.potential_energy),
+        pe_grad=_host(state.pe_grad),
+        mean_accept_prob=_host(state.mean_accept_prob),
+        num_steps=_host(state.num_steps),
+        diverging=_host(state.diverging),
+        adapt_state=NUTSAdaptState(
+            da=DAState(*map(_host, a.da)),
+            inv_mass=_host(a.inv_mass),
+            chol_inv_mass=_host(a.chol_inv_mass),
+            welford=WelfordState(*map(_host, a.welford)),
         ),
     )

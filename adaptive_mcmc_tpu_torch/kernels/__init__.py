@@ -13,6 +13,15 @@ from adaptive_mcmc_tpu_torch.kernels.asss import (  # noqa: F401
     ASSSState,
     asss,
 )
+from adaptive_mcmc_tpu_torch.kernels.nuts import (  # noqa: F401
+    DAState,
+    NUTSAdaptState,
+    NUTSConfig,
+    NUTSDraws,
+    NUTSState,
+    WelfordState,
+    nuts,
+)
 from adaptive_mcmc_tpu_torch.kernels.sa import (  # noqa: F401
     SAAdaptState,
     SAConfig,
@@ -26,3 +35,4 @@ from adaptive_mcmc_tpu_torch.infer.mcmc import register_kernel_factory
 register_kernel_factory("arwmh", arwmh)
 register_kernel_factory("asss", asss)
 register_kernel_factory("sa", sa)
+register_kernel_factory("nuts", nuts)

@@ -178,13 +178,15 @@ def arwmh(target, config: ARWMHConfig = ARWMHConfig()) -> Kernel:
             )
 
         def step_n(state: ARWMHState, n_steps: int, generator=None,
-                   noise=None, unif=None) -> ARWMHState:
+                   noise=None, unif=None, *, eager: bool = False
+                   ) -> ARWMHState:
             new, _ = drive(_as_tuple(state), n_steps, 0, 1,
                            generator=generator, noise=noise, unif=unif)
             return _from_tuple(new)
 
         def collect_n(state: ARWMHState, n_frames: int, thinning: int = 1,
-                      generator=None, noise=None, unif=None):
+                      generator=None, noise=None, unif=None, *,
+                      eager: bool = False):
             new, frames = drive(_as_tuple(state), n_frames * thinning,
                                 n_frames, thinning, generator=generator,
                                 noise=noise, unif=unif)

@@ -289,11 +289,13 @@ def asss(target, config: ASSSConfig = ASSSConfig()) -> Kernel:
         return new, frames
 
     def step_n(state: ASSSState, n_steps: int,
-               generator: Optional[torch.Generator] = None) -> ASSSState:
+               generator: Optional[torch.Generator] = None, *,
+               eager: bool = False) -> ASSSState:
         return _run(state, n_steps, 0, 1, generator)[0]
 
     def collect_n(state: ASSSState, n_frames: int, thinning: int = 1,
-                  generator: Optional[torch.Generator] = None):
+                  generator: Optional[torch.Generator] = None, *,
+                  eager: bool = False):
         return _run(state, n_frames * thinning, n_frames, thinning,
                     generator)
 

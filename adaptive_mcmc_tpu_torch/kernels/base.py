@@ -29,10 +29,12 @@ class Kernel:
     step: Callable[..., Any]
     sample_field: str = "position"
     # Optional multi-step driver
-    # ``step_n(state, n_steps, generator, noise, unif) -> state``.
+    # ``step_n(state, n_steps, generator, noise, unif, *, eager) -> state``;
+    # ``eager=True`` asks a driver that replays a CUDA graph (NUTS's
+    # machine) for its Python loop, and changes nothing in the others.
     step_n: Any = None
     # Optional thinned-draw collector ``collect_n(state, n_frames, thinning,
-    # generator, noise, unif) -> (state, {field: (C, F, ...)})``.
+    # generator, noise, unif, *, eager) -> (state, {field: (C, F, ...)})``.
     collect_n: Any = None
     # Field names ``collect_n`` records.
     collect_fields: tuple = ()

@@ -58,14 +58,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the eager loop bit for bit (3 K1 launches per step in both), then
    MCMC(sa(eight_schools_noncentered()), num_warmup=2500,
    num_samples=25000, thinning=10, n_chains=1024) against the quadrature
-   truths of mu and log tau, K1 launched 3 x 27500 times; the checkpointed
+   truths of mu and log tau, K1 launched 3 x 27500 times; NUTS at 1024
+   chains, its machine from the CUDA graph: step_n of 100 then collect_n of
+   50 frames at thinning 2 against the eager blocks bit for bit (final
+   state, frames, the generator's next draws, trips), the trial of trips
+   per graph replay (GRAPH_TRIPS set to 8, 16, 32, 64 in turn),
+   MCMC(nuts(eight_schools_noncentered()),
+   700 + 500) against the quadrature truths (mean and sd of log tau, mean
+   mu; the tau median of every eight-schools run beside the quadrature's)
+   and MCMC(nuts(kidiq()), 500 + 500) through the kidiq gate, with
+   acceptance, num_steps, divergences, trips, ms per trip, chain-iters/s,
+   and no kernel of csrc/ launched; the checkpointed
    driver (ARWMH on std_normal(3), 64 chains) interrupted after its first
    chunk and resumed against run_mcmc bit for bit, and
    collect_states_logscale(n_pow=4)'s grid; the port's bench
-   (adaptive_mcmc_tpu_torch.bench.main(): four numeric cells, NUTS null);
+   (adaptive_mcmc_tpu_torch.bench.main(): five numeric cells);
    one step of entry(); then the host time per step, kernels per step
    (the six largest by device time) and device idle share of the ARWMH
-   lockstep step and the SA step, eager and from the graph
+   lockstep step and the SA step, and per trip of the NUTS machine, eager
+   and from the graph
    (torch.profiler; last, because the profiler once on slows every later
    launch of the process);
 9. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
@@ -76,7 +87,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    line last.
 """
 
+import contextlib
 import dataclasses
+import importlib
 import json
 import sys
 import time
@@ -120,6 +133,22 @@ SA_CHAINS, SA_WARMUP, SA_SAMPLES = 1024, 2500, 25000
 SA_MU, SA_LOG_TAU, SA_MU_TOL, SA_LOG_TAU_TOL = 4.397, 0.8022, 0.2, 0.15
 SA_GRAPH_CHECK_WARMUP, SA_GRAPH_CHECK_SAMPLES = 100, 100
 SA_PROFILE_STEPS = {"eager": 50, "graph": 300}
+# the NUTS path: the bench's NUTS cell (1024 chains); the graph run against
+# the eager blocks; eight schools against the quadrature truths with
+# tests/test_nuts.py's bands, kidiq through kidiq_gate; a trial of the
+# machine trips per CUDA graph replay; the profiled windows (transitions)
+NUTS_CHAINS = 1024
+NUTS_CHECK_WARMUP, NUTS_CHECK_STEPS = 100, 100
+NUTS_CHECK_FRAMES, NUTS_CHECK_THINNING = 50, 2
+NUTS_WARMUP, NUTS_SAMPLES = 700, 500
+NUTS_KIDIQ_WARMUP, NUTS_KIDIQ_SAMPLES = 500, 500
+NUTS_LOG_TAU_TOL, NUTS_SD_LOG_TAU_TOL, NUTS_MU_TOL = 0.045, 0.06, 0.25
+NUTS_BLOCK_TRIAL, NUTS_TRIAL_STEPS = (8, 16, 32, 64), 100
+# short profiled windows: torch.profiler's processing grows with its events,
+# some 360 kernels per trip (a 50-transition window took over a minute)
+NUTS_PROFILE_STEPS = {"eager": 2, "graph": 10}
+# the eight-schools tau median of every run, by run
+TAU_MEDIANS = {}
 # the drivers on the card: ARWMH on std_normal(3) at 64 chains
 DRIVER_CHAINS, DRIVER_WARMUP, DRIVER_SAMPLES, DRIVER_CHUNK = 64, 100, 400, 200
 # the TPU kernels the instantiations replace
@@ -499,6 +528,7 @@ def reset_launches(*modules) -> None:
 def eight_schools_bands(name: str, sites) -> None:
     mu_mean = float(sites["mu"].mean())
     tau_median = float(sites["tau"].median())
+    TAU_MEDIANS[name] = tau_median
     print(f"{name}: mu mean {mu_mean:.4f}, tau median {tau_median:.4f}")
     require(abs(mu_mean - 4.4) < 0.3, f"{name}: mu mean {mu_mean}")
     require(abs(tau_median - 2.9) < 0.4, f"{name}: tau median {tau_median}")
@@ -614,19 +644,8 @@ def profile_lockstep(kernel, label: str, n_chains: int, steps: int,
         advance(steps)
         torch.cuda.synchronize()
         traced_ms = (time.perf_counter() - t0) * 1e3 / steps
-    n_kernels, busy_us, by_name = 0, 0.0, []
-    for ev in prof.key_averages():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            us = getattr(ev, "self_device_time_total", None) \
-                or getattr(ev, "self_cuda_time_total", 0.0)
-            n_kernels += ev.count
-            busy_us += us
-            by_name.append((us, ev.count, ev.key))
-    for us, count, key in sorted(by_name, reverse=True)[:6]:
-        print(f"{label} {name}: {us / steps:.2f} µs and {count / steps:.1f} "
-              f"launches per step in {key[:90]}")
-    require(n_kernels > 0 and busy_us > 0,
-            "torch.profiler recorded no device activity")
+    n_kernels, busy_us = device_activity(prof, f"{label} {name}", steps,
+                                         "step")
     out = {"host_ms": host_ms, "traced_ms": traced_ms,
            "kernels": n_kernels / steps, "busy_us": busy_us / steps,
            "idle": 1.0 - busy_us / steps / (traced_ms * 1e3),
@@ -639,6 +658,25 @@ def profile_lockstep(kernel, label: str, n_chains: int, steps: int,
           f"without the profiler, busy time of that window over the host "
           f"time of the other: {out['idle_unprofiled']:.4f}) on {card}")
     return out
+
+
+def device_activity(prof, label: str, per: int, unit: str) -> tuple:
+    """(kernels, device busy µs) of a torch.profiler window, and its six
+    largest kernels by device time, per ``unit`` (``per`` of them)."""
+    n_kernels, busy_us, by_name = 0, 0.0, []
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total", None) \
+                or getattr(ev, "self_cuda_time_total", 0.0)
+            n_kernels += ev.count
+            busy_us += us
+            by_name.append((us, ev.count, ev.key))
+    for us, count, key in sorted(by_name, reverse=True)[:6]:
+        print(f"{label}: {us / per:.2f} µs and {count / per:.1f} "
+              f"launches per {unit} in {key[:90]}")
+    require(n_kernels > 0 and busy_us > 0,
+            "torch.profiler recorded no device activity")
+    return n_kernels, busy_us
 
 
 def profile_pair(label: str, kernel, n_chains: int, steps: dict,
@@ -875,6 +913,211 @@ def run_sa(amt, k1, card: str):
     return rate, launches
 
 
+def eight_schools_truth(amt) -> dict:
+    """Quadrature moments of the eight-schools (mu, log tau) marginal and
+    the median of tau: integrating theta_base out gives y_j ~ N(mu,
+    sigma_j^2 + tau^2).  A numpy copy of the JAX package's
+    experiments/quadrature.py eight_schools_truth, over the port's data,
+    with the median added."""
+    d = amt.models.data.eight_schools()
+    y = np.asarray(d["y"], np.float64)
+    sigma = np.asarray(d["sigma"], np.float64)
+    mus = np.linspace(-25.0, 35.0, 1200)
+    lts = np.linspace(-14.0, 5.0, 1900)
+    MU, LT = np.meshgrid(mus, lts, indexing="ij")
+    TAU = np.exp(LT)
+    lp = -0.5 * (MU / 5.0) ** 2
+    lp += np.log(2.0 / np.pi) - np.log(5.0 * (1.0 + (TAU / 5.0) ** 2)) + LT
+    var = sigma[None, None, :] ** 2 + TAU[..., None] ** 2
+    lp += np.sum(-0.5 * np.log(2.0 * np.pi * var)
+                 - 0.5 * (y[None, None, :] - MU[..., None]) ** 2 / var,
+                 axis=-1)
+    w = np.exp(lp - lp.max())
+    w /= w.sum()
+    e_lt, e_mu = float((w * LT).sum()), float((w * MU).sum())
+    cdf = np.cumsum(w.sum(axis=0))
+    return {"mean_log_tau": e_lt,
+            "sd_log_tau": float(np.sqrt((w * LT ** 2).sum() - e_lt ** 2)),
+            "mean_mu": e_mu,
+            "median_tau": float(np.exp(np.interp(0.5, cdf, lts)))}
+
+
+def check_nuts_graph_equals_eager(amt, tn, card: str):
+    """step_n then collect_n of NUTS at the bench's width from the CUDA
+    graph and from the eager blocks, same seed, same init: final state,
+    frames and the generator's next draws bit for bit; returns the graph
+    run's final state (after warmup)."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors
+    k = amt.nuts(amt.eight_schools_noncentered(),
+                 amt.NUTSConfig(num_warmup=NUTS_CHECK_WARMUP))
+    init = k.init(torch.Generator("cuda").manual_seed(51),
+                  n_chains=NUTS_CHAINS)
+    runs = {}
+    for eager in (True, False):
+        g = torch.Generator("cuda").manual_seed(52)
+        tn.trips = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = k.step_n(init, NUTS_CHECK_STEPS, g, eager=eager)
+        s, frames = k.collect_n(s, NUTS_CHECK_FRAMES, NUTS_CHECK_THINNING, g,
+                                eager=eager)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[eager] = (state_tensors(s), list(frames.values()),
+                       torch.rand(8, generator=g, device="cuda"), tn.trips,
+                       wall, s)
+    e, gr = runs[True], runs[False]
+    require(all(torch.equal(a, b) for a, b in zip(e[0], gr[0])),
+            "NUTS graph run's final state differs from the eager blocks'")
+    require(all(torch.equal(a, b) for a, b in zip(e[1], gr[1])),
+            "NUTS graph run's frames differ from the eager blocks'")
+    require(torch.equal(e[2], gr[2]),
+            "the generator stands elsewhere after the NUTS graph run")
+    require(e[3] == gr[3], f"NUTS trips: eager {e[3]}, graph {gr[3]}")
+    frames = gr[1][0]
+    require(bool(torch.isfinite(frames).all())
+            and not bool((frames == 0).all(dim=-1).any()),
+            "NUTS frames not all written")
+    n = NUTS_CHECK_STEPS + NUTS_CHECK_FRAMES * NUTS_CHECK_THINNING
+    print(f"NUTS graph run equals the eager blocks bit for bit: step_n of "
+          f"{NUTS_CHECK_STEPS} then collect_n of {NUTS_CHECK_FRAMES} frames "
+          f"at thinning {NUTS_CHECK_THINNING}, {NUTS_CHAINS} chains: final "
+          f"state, frames, the generator's next draws; {gr[3]} trips in "
+          f"both ({gr[3] / n:.2f} per transition); eager {e[4]:.3f} s "
+          f"({e[4] / e[3] * 1e3:.4f} ms per trip), graph {gr[4]:.3f} s "
+          f"({gr[4] / gr[3] * 1e3:.4f} ms per trip, the capture included) "
+          f"on {card}")
+    return gr[5]
+
+
+def nuts_block_trial(amt, tn, state, card: str) -> None:
+    """step_n of NUTS_TRIAL_STEPS transitions from the CUDA graph with
+    kernels.nuts.GRAPH_TRIPS (machine trips per replay) set to each length
+    of NUTS_BLOCK_TRIAL for the trial's duration, after a warm call that
+    captures it: ms per trip and wall.  The trial that chose GRAPH_TRIPS."""
+    k = amt.nuts(amt.eight_schools_noncentered(),
+                 amt.NUTSConfig(num_warmup=NUTS_CHECK_WARMUP))
+    kept = tn.GRAPH_TRIPS
+    try:
+        for block in NUTS_BLOCK_TRIAL:
+            tn.GRAPH_TRIPS = block
+            g = torch.Generator("cuda").manual_seed(53)
+            k.step_n(state, 10, g)
+            tn.trips = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = k.step_n(state, NUTS_TRIAL_STEPS, g)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            require(bool(torch.isfinite(out.position).all()), "NUTS trial")
+            print(f"NUTS block trial: {block} trips per replay, step_n of "
+                  f"{NUTS_TRIAL_STEPS} at {NUTS_CHAINS} chains: {tn.trips} "
+                  f"trips, {wall / tn.trips * 1e3:.4f} ms per trip, "
+                  f"{wall:.4f} s, {NUTS_CHAINS * NUTS_TRIAL_STEPS / wall:.1f}"
+                  f" chain-iters/s on {card}")
+    finally:
+        tn.GRAPH_TRIPS = kept
+
+
+def run_nuts(amt, tn, name: str, warmup: int, samples: int, card: str):
+    """MCMC(nuts(target), ...) at NUTS_CHAINS from the CUDA graph; returns
+    flat unconstrained draws (T, C, d) on the card and the rate."""
+    t = getattr(amt, name)()
+    mcmc = amt.MCMC(amt.nuts(t), num_warmup=warmup, num_samples=samples,
+                    n_chains=NUTS_CHAINS)
+    tn.trips = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc.run(torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    trips = tn.trips
+    mcmc.print_summary()
+    print(mcmc.diagnostics_str())
+    draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
+    label = f"NUTS {name}"
+    require(draws.is_cuda, f"{label}: draws not on the card")
+    require(tuple(draws.shape) == (samples, NUTS_CHAINS, t.dim),
+            f"{label}: draws shape {tuple(draws.shape)}")
+    require(bool(torch.isfinite(draws).all()), f"{label}: non-finite draws")
+    last = mcmc.last_state
+    accept = float(last.mean_accept_prob.mean())
+    steps = warmup + samples
+    rate = NUTS_CHAINS * steps / wall
+    print(f"{label}: acceptance {accept:.4f}, mean num_steps "
+          f"{float(last.num_steps.float().mean()):.2f} (leapfrogs of each "
+          f"chain's last transition), diverging in the last transition "
+          f"{int(last.diverging.sum())} of {NUTS_CHAINS}, {trips} trips "
+          f"({trips / steps:.2f} per transition, {wall / trips * 1e3:.4f} ms "
+          f"per trip), {rate:.1f} chain-iters/s ({NUTS_CHAINS} chains x "
+          f"{steps} transitions in {wall:.3f} s) on {card}")
+    require(0.6 < accept < 0.99, f"{label}: acceptance {accept}")
+    return draws, rate
+
+
+def nuts_eight_schools_gate(amt, draws) -> None:
+    """mean and sd of log tau and mean of mu against the quadrature truths
+    (tests/test_nuts.py's bands), and the tau median of every eight-schools
+    run of this script beside the quadrature's."""
+    truth = eight_schools_truth(amt)
+    s = draws.double().reshape(-1, draws.shape[-1]).cpu().numpy()
+    m_lt, sd_lt, m_mu = s[:, 1].mean(), s[:, 1].std(), s[:, 0].mean()
+    TAU_MEDIANS["NUTS"] = float(np.median(np.exp(s[:, 1])))
+    print(f"NUTS eight schools vs quadrature: mean log tau {m_lt:.4f} "
+          f"(truth {truth['mean_log_tau']:.4f}), sd log tau {sd_lt:.4f} "
+          f"({truth['sd_log_tau']:.4f}), mean mu {m_mu:.4f} "
+          f"({truth['mean_mu']:.4f})")
+    print(f"eight-schools tau median: quadrature {truth['median_tau']:.4f}; "
+          + ", ".join(f"{k} {v:.4f}" for k, v in TAU_MEDIANS.items()))
+    require(abs(m_lt - truth["mean_log_tau"]) < NUTS_LOG_TAU_TOL,
+            f"NUTS mean log tau {m_lt}")
+    require(abs(sd_lt - truth["sd_log_tau"]) < NUTS_SD_LOG_TAU_TOL,
+            f"NUTS sd log tau {sd_lt}")
+    require(abs(m_mu - truth["mean_mu"]) < NUTS_MU_TOL, f"NUTS mean mu {m_mu}")
+
+
+def profile_nuts(amt, tn, state, eager: bool, card: str) -> dict:
+    """Host time, kernels and device busy per machine trip of a NUTS
+    step_n from ``state``, eagerly or from the graph: the host clock over
+    one window, torch.profiler over a second; idle share as in
+    profile_lockstep."""
+    from torch.profiler import ProfilerActivity, profile
+    name = "eager" if eager else "graph"
+    n = NUTS_PROFILE_STEPS[name]
+    k = amt.nuts(amt.eight_schools_noncentered(),
+                 amt.NUTSConfig(num_warmup=NUTS_CHECK_WARMUP))
+    g = torch.Generator("cuda").manual_seed(61)
+    k.step_n(state, 2, g, eager=eager)
+    windows = []
+    for profiled in (False, True):
+        tn.trips = 0
+        torch.cuda.synchronize()
+        ctx = profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if profiled \
+            else contextlib.nullcontext()
+        with ctx as prof:
+            t0 = time.perf_counter()
+            k.step_n(state, n, g, eager=eager)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        windows.append((wall * 1e3 / tn.trips, tn.trips, prof))
+    (host_ms, _, _), (traced_ms, n_trips, prof) = windows
+    n_kernels, busy_us = device_activity(prof, f"NUTS {name}", n_trips,
+                                         "trip")
+    out = {"host_ms": host_ms, "traced_ms": traced_ms,
+           "kernels": n_kernels / n_trips, "busy_us": busy_us / n_trips,
+           "idle": 1.0 - busy_us / n_trips / (traced_ms * 1e3),
+           "idle_unprofiled": 1.0 - busy_us / n_trips / (host_ms * 1e3)}
+    print(f"NUTS {name}, step_n of {n} transitions at {NUTS_CHAINS} chains "
+          f"({n_trips} trips): host time per trip {host_ms:.4f} ms "
+          f"({traced_ms:.4f} under the profiler), kernels per trip "
+          f"{out['kernels']:.1f}, device busy per trip {out['busy_us']:.2f} "
+          f"µs, device idle share {out['idle']:.4f} in the profiled window "
+          f"(estimate without the profiler {out['idle_unprofiled']:.4f}) on "
+          f"{card}")
+    return out
+
+
 def check_drivers(amt) -> None:
     """ARWMH on std_normal(3) through the checkpointed driver, interrupted
     after its first chunk and resumed with another generator seed, against
@@ -920,14 +1163,13 @@ def check_drivers(amt) -> None:
 
 def check_bench() -> dict:
     """python -m adaptive_mcmc_tpu_torch.bench's main(): its JSON line,
-    four numeric cells, NUTS null, every ess_per_sec null."""
+    five numeric cells, every ess_per_sec null."""
     from adaptive_mcmc_tpu_torch import bench
     res = bench.main()
     cells = {c["metric"]: c for c in [res, *res["extras"]]}
+    require(len(cells) == 5, f"bench cells {list(cells)}")
     for name, c in cells.items():
-        numeric = not name.startswith("nuts")
-        require((isinstance(c["value"], float) and c["value"] > 0)
-                if numeric else c["value"] is None,
+        require(isinstance(c["value"], float) and c["value"] > 0,
                 f"bench cell {name}: {c['value']}")
         require(c["ess_per_sec"] is None, f"bench {name} ess_per_sec")
     return res
@@ -1004,6 +1246,7 @@ def main() -> int:
     from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2
     from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3
     from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1
+    tn = importlib.import_module("adaptive_mcmc_tpu_torch.kernels.nuts")
 
     # 1. device
     card = card_name()
@@ -1126,6 +1369,26 @@ def main() -> int:
     check_sa_graph_equals_eager(amt, k1)
     _, k1_sa = run_sa(amt, k1, card)
     elapsed("the SA path")
+
+    # NUTS: the machine from the CUDA graph against the eager blocks, the
+    # block trial, eight schools against the quadrature, kidiq
+    t_nuts = time.perf_counter()
+    nuts_state = check_nuts_graph_equals_eager(amt, tn, card)
+    nuts_block_trial(amt, tn, nuts_state, card)
+    reset_launches(*counters)
+    draws, nuts_es_rate = run_nuts(amt, tn, "eight_schools_noncentered",
+                                   NUTS_WARMUP, NUTS_SAMPLES, card)
+    nuts_eight_schools_gate(amt, draws)
+    draws, nuts_kidiq_rate = run_nuts(amt, tn, "kidiq", NUTS_KIDIQ_WARMUP,
+                                      NUTS_KIDIQ_SAMPLES, card)
+    kidiq_gate(amt, draws, "NUTS kidiq")
+    del draws
+    require(all(m.launches == 0 for m in counters),
+            "the NUTS path launched a kernel of csrc/")
+    print(f"NUTS phases: {time.perf_counter() - t_nuts:.1f} s; "
+          f"chain-iters/s on {card}: eight schools {nuts_es_rate:.1f}, kidiq "
+          f"{nuts_kidiq_rate:.1f}")
+    elapsed("the NUTS path")
     check_drivers(amt)
     check_bench()
     check_entry()
@@ -1141,6 +1404,14 @@ def main() -> int:
     profile_pair("SA", amt.sa(amt.eight_schools_noncentered(),
                               amt.SAConfig(num_warmup=SA_WARMUP)),
                  SA_CHAINS, SA_PROFILE_STEPS, card)
+    prof = {eager: profile_nuts(amt, tn, nuts_state, eager, card)
+            for eager in (True, False)}
+    print(f"NUTS trip, eager -> graph: host time "
+          f"{prof[True]['host_ms']:.4f} -> {prof[False]['host_ms']:.4f} ms, "
+          f"kernels {prof[True]['kernels']:.1f} -> "
+          f"{prof[False]['kernels']:.1f}, idle share "
+          f"{prof[True]['idle']:.4f} -> {prof[False]['idle']:.4f} "
+          f"under the profiler")
 
     # 9. results
     # K1's chains-first kernel ran the ARWMH lockstep path and the SA path,

@@ -1,5 +1,6 @@
 """The port's bench, entry() and profiling utilities on the CPU: the bench's
-JSON line from given rates (NUTS and every ess_per_sec null, valid JSON,
+JSON line from given rates (five numeric cells, every ess_per_sec null,
+valid JSON,
 bench.py's fields), the bench and entry() refusing to run without a card,
 entry(device="cpu") against the JAX entry(), and PhaseTimer, format_rate
 and trace against adaptive_mcmc_tpu.utils."""
@@ -18,7 +19,7 @@ from adaptive_mcmc_tpu_torch import bench  # noqa: E402
 from adaptive_mcmc_tpu_torch.entry import entry  # noqa: E402
 from adaptive_mcmc_tpu_torch.utils import profiling  # noqa: E402
 
-RATES = {"arwmh": 27569412.71, "asss": 440000.04, "nuts": None,
+RATES = {"arwmh": 27569412.71, "asss": 440000.04, "nuts": 123456.78,
          "asss_diamonds": 98765.43, "sa": 2161820.57}
 
 
@@ -38,8 +39,9 @@ def test_bench_json_line():
     assert all(c["ess_per_sec"] is None for c in cells.values())
     assert all(c["unit"] == "chain_iters_per_sec" for c in cells.values())
     nuts = cells["nuts_eight_schools_1024chains"]
-    assert nuts["value"] is None and nuts["vs_baseline"] is None
-    assert "A11" in nuts["note"]
+    assert nuts["value"] == 123456.8
+    assert nuts["vs_baseline"] == round(123456.78 / 10_400.0, 2)
+    assert all(isinstance(c["value"], float) for c in cells.values())
     sa = cells["sa_eight_schools_1024chains"]
     assert sa["vs_baseline"] == round(2161820.57 / 9_112.9, 2)
     assert "baseline_note" in sa

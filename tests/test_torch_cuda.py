@@ -1,6 +1,7 @@
 """CUDA kernels of adaptive_mcmc_tpu_torch against their plain PyTorch
-versions on the card, and the main path through them.  Marked ``cuda``:
-each test needs a CUDA device and nvcc, and skips where
+versions on the card, the main path through them, and the CUDA graphs of
+the drivers (NUTS's machine against its eager blocks included).  Marked
+``cuda``: each test needs a CUDA device and nvcc, and skips where
 torch.cuda.is_available() is false.  Run on a GPU machine with
 ``python -m pytest tests/test_torch_cuda.py -q -n 0``."""
 
@@ -592,3 +593,108 @@ def test_checkpointed_resume_on_the_card(cuda, tmp_path):
         n_chains=32, checkpoint_dir=tmp_path, chunk_size=30)
     assert last.position.is_cuda
     np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+def _nuts_runs(cuda, kernel, init, n_steps, n_frames, thinning):
+    """step_n then collect_n from ``init``, eagerly and from the CUDA
+    graph, each from a generator of the same seed: (state and frame
+    tensors, the generator's next draws) per mode."""
+    out = []
+    for eager in (True, False):
+        g = torch.Generator(cuda).manual_seed(9)
+        s = kernel.step_n(init, n_steps, g, eager=eager)
+        s, frames = kernel.collect_n(s, n_frames, thinning, g, eager=eager)
+        torch.cuda.synchronize()
+        out.append([*state_tensors(s), *frames.values(),
+                    torch.rand(4, generator=g, device=cuda)])
+    return out
+
+
+def test_nuts_graph_run_equals_eager_run(cuda):
+    k = amt.nuts(amt.eight_schools_noncentered(),
+                 amt.NUTSConfig(num_warmup=30))
+    init = k.init(torch.Generator(cuda).manual_seed(5), n_chains=128)
+    eager, graph = _nuts_runs(cuda, k, init, 40, 10, 2)
+    for a, b in zip(eager, graph):
+        assert a.is_cuda and torch.equal(a, b)
+    assert int(graph[0]) == 60
+
+
+@pytest.mark.parametrize("n_steps", [7, 13])
+def test_nuts_step_n_off_the_block_length(cuda, n_steps):
+    """A call whose trips end inside a block: the trips past every chain's
+    end are no-ops, and the graph still equals the eager blocks."""
+    k = amt.nuts(amt.std_normal(3), amt.NUTSConfig(num_warmup=10))
+    init = k.init(torch.Generator(cuda).manual_seed(3), n_chains=64)
+    eager, graph = _nuts_runs(cuda, k, init, n_steps, 2, 3)
+    for a, b in zip(eager, graph):
+        assert torch.equal(a, b)
+    assert int(graph[0]) == n_steps + 6
+
+
+def test_nuts_collect_n_frames_are_each_calls_own(cuda):
+    """Two graph collect_n calls in a row hand back distinct frame buffers,
+    each equal to its eager run."""
+    k = amt.nuts(amt.std_normal(3), amt.NUTSConfig(num_warmup=0))
+    init = k.init(torch.Generator(cuda).manual_seed(4), n_chains=64)
+    runs = []
+    for eager in (True, False):
+        g = torch.Generator(cuda).manual_seed(6)
+        s, first = k.collect_n(init, 6, 2, g, eager=eager)
+        _, second = k.collect_n(s, 6, 2, g, eager=eager)
+        runs.append((first, second))
+    (e1, e2), (g1, g2) = runs
+    for f in ("position", "potential_energy"):
+        assert g1[f].data_ptr() != g2[f].data_ptr()
+        assert torch.equal(g1[f], e1[f]) and torch.equal(g2[f], e2[f])
+        assert not torch.equal(g1[f], g2[f])
+
+
+def test_nuts_potential_reading_the_host_raises_on_the_first_block(cuda):
+    base = amt.std_normal(2)
+
+    def potential(x):
+        scale = float(x.abs().max().item() >= 0.0)   # a host read
+        return scale * base.potential_fn(x)
+
+    t = dataclasses.replace(base, potential_fn=potential)
+    k = amt.nuts(t, amt.NUTSConfig(num_warmup=5))
+    g = torch.Generator(cuda).manual_seed(1)
+    init = k.init(g, n_chains=16)
+    before = g.get_state()
+    with pytest.raises(RuntimeError, match="cannot capture nuts.step_n"):
+        k.step_n(init, 4, g)
+    assert torch.equal(g.get_state(), before)
+    out = k.step_n(init, 4, g, eager=True)
+    assert int(out.i) == 4
+
+
+def test_nuts_lockstep_step_on_the_card_matches_the_cpu(cuda):
+    k = amt.nuts(amt.eight_schools_noncentered(),
+                 amt.NUTSConfig(num_warmup=10, max_tree_depth=5))
+    s = k.init(torch.Generator().manual_seed(2), n_chains=32)
+    rng = np.random.default_rng(0)
+    draws = amt.NUTSDraws(
+        torch.tensor(rng.normal(size=(32, 10)), dtype=torch.float32),
+        *(torch.tensor(rng.uniform(size=shape), dtype=torch.float32)
+          for shape in ((32, 5), (32, 5), (32, 5, 16))))
+    want = k.step(s, None, draws)
+    on_card = [t.to(cuda) for t in state_tensors(s)]
+    from adaptive_mcmc_tpu_torch.infer.mcmc import map_state
+    it = iter(on_card)
+    s_card = map_state(lambda t: next(it), s)
+    got = k.step(s_card, None, amt.NUTSDraws(*(t.to(cuda) for t in draws)))
+    assert torch.equal(got.num_steps.cpu(), want.num_steps)
+    for a, b in zip(state_tensors(got), state_tensors(want)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5)
+
+
+def test_nuts_mcmc_runs_from_the_graph(cuda):
+    t = amt.eight_schools_noncentered()
+    mcmc = amt.MCMC(amt.nuts(t), num_warmup=60, num_samples=40,
+                    thinning=2, n_chains=256)
+    mcmc.run(torch.Generator(cuda).manual_seed(0))
+    draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
+    assert draws.is_cuda and draws.shape == (20, 256, 10)
+    assert torch.isfinite(draws).all()
+    assert "Step size" in mcmc.diagnostics_str()
