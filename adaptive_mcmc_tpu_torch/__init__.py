@@ -7,7 +7,10 @@ samplers so far: batched adaptive ARWMH, ASSS, SA and NUTS on the PosteriorDB
 posteriors (eight schools noncentered and centered, kidiq, diamonds),
 driven by ``run_mcmc`` / ``MCMC`` (and the resumable
 ``run_mcmc_checkpointed`` and the log-grid ``collect_states_logscale``),
-with kernel K1 (the rank-1 Cholesky
+and the diagnostics: ``metrics`` (moments, sliced and exact Wasserstein
+with the ε-auction, MMD, Sinkhorn), ``sample_pnx``, ``contraction`` (the
+Lipschitz-NN estimators) and ``analysis`` (invariance and contraction
+curves), with kernel K1 (the rank-1 Cholesky
 update), kernel K2 (the fused ARWMH sweep, ``ARWMHConfig(fused=True)``) and kernel
 K3 (the fused ASSS sweep, ``ASSSConfig(fused=True)``), both taking every
 posterior above, diamonds at d = 26 included.  It
@@ -69,6 +72,12 @@ from adaptive_mcmc_tpu_torch.infer import (  # noqa: F401
     ns_logscale,
     run_mcmc,
     run_mcmc_checkpointed,
+    sample_pnx,
+)
+from adaptive_mcmc_tpu_torch import (  # noqa: F401
+    analysis,
+    contraction,
+    metrics,
 )
 
 __version__ = "0.1.0"

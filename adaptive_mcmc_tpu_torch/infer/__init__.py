@@ -3,6 +3,7 @@ from adaptive_mcmc_tpu_torch.infer.mcmc import (  # noqa: F401
     get_init_adapt_state,
     register_kernel_factory,
     run_mcmc,
+    sample_pnx,
 )
 from adaptive_mcmc_tpu_torch.infer.collect import (  # noqa: F401
     collect_states_logscale,

@@ -18,6 +18,7 @@ steps is a Python loop.
 from __future__ import annotations
 
 import dataclasses
+from collections import OrderedDict
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -391,6 +392,125 @@ class MCMC:
             return f"Acceptance rate: {ap:.2f}, Step size: {ss:.3f}"
         return (f"Iteration: {int(s.i)}, Potential Energy: "
                 f"{float(torch.mean(s.potential_energy)):.2f}")
+
+
+# the rollouts of sample_pnx kept for their next call: (kernel, C, n,
+# device, generator) -> _Rollout, the least recently used dropped first
+_ROLLOUTS: OrderedDict = OrderedDict()
+MAX_ROLLOUTS = 8
+
+
+def _frozen(kernel):
+    """``kernel`` rebuilt with adaptation off where its config adapts and
+    its factory is registered (the rollout then skips the discarded
+    adaptation), with every step pinning ``i`` and the adapt state (the
+    reference's frozen semantics, for kernels with no such rebuild)."""
+    if getattr(kernel.config, "adapt", False) \
+            and kernel.name in _KERNEL_FACTORIES:
+        changes = {"adapt": False}
+        if getattr(kernel.config, "fused", None):
+            changes["fused"] = None      # the fused drivers always adapt
+        kernel = _KERNEL_FACTORIES[kernel.name](
+            kernel.target, dataclasses.replace(kernel.config, **changes))
+    step = kernel.step
+
+    def pinned(state, generator):
+        return step(state, generator)._replace(i=state.i,
+                                               adapt_state=state.adapt_state)
+
+    return dataclasses.replace(kernel, step=pinned)
+
+
+class _Rollout:
+    """A frozen kernel and, on the card for a kernel whose ``step`` can be
+    captured, its CUDA graph of the pinned steps over static buffers; with
+    the generator that seeded calls draw from."""
+
+    def __init__(self, kernel, device, generator):
+        self.kernel = _frozen(kernel)
+        self.generator = torch.Generator(device)
+        self.blocks: Optional[StepBlocks] = None
+        self.refs = (kernel, generator)     # keeps the ids of the key alive
+
+
+def _rollout(kernel, C: int, n: int, device, generator) -> _Rollout:
+    key = (id(kernel), C, n, str(device),
+           None if generator is None else id(generator))
+    entry = _ROLLOUTS.pop(key, None)
+    if entry is None:
+        entry = _Rollout(kernel, device, generator)
+    _ROLLOUTS[key] = entry
+    while len(_ROLLOUTS) > MAX_ROLLOUTS:
+        _ROLLOUTS.popitem(last=False)
+    return entry
+
+
+def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
+               n_samples: int = 1000, eager: bool = False) -> Tensor:
+    """Monte-Carlo sampler of the n-step transition kernel P^n(x, ·) at a
+    frozen adapt state: the engine of the contraction diagnostics.
+
+    ``x``: (n_points, d) probe points; returns (n_points, n_samples, d).
+    The (points × samples) grid is flattened point-major into one chains
+    axis of n_points * n_samples chains and rolled forward with the
+    kernel's ``step``, ``i`` and the adapt state (each leaf of leading
+    dimension 1 or n_points, broadcast over the grid) pinned after every
+    step.
+
+    ``generator`` is a ``torch.Generator``, whose draws continue from its
+    state, or an int seed: calls with the same seed, shapes and kernel draw
+    the same numbers, so two rollouts from nearby points are coupled
+    (common random numbers).  With a seed, a kernel whose step draws a
+    number of values that depends on the data (ASSS, NUTS) reseeds its
+    generator from (seed, step) before every step, so that the coupling
+    holds step by step, as JAX's per-chain keys do.  The run is on the
+    generator's device, or for a seed on the device of ``x``.  On a CUDA
+    device a kernel whose
+    ``step`` can be captured (ARWMH, RWM, SA) replays its steps from a CUDA
+    graph kept for the next call with the same kernel, chain count, ``n``
+    and generator (or seed); ``eager=True`` asks for the Python loop, with
+    the same draws.  ASSS and NUTS run their eager ``step``."""
+    seeded = not isinstance(generator, torch.Generator)
+    seed = int(generator) if seeded else None
+    if seeded:
+        device = x.device if isinstance(x, Tensor) else torch.device("cpu")
+    else:
+        device = generator.device
+    x = torch.as_tensor(x, dtype=torch.float32).to(device)
+    n_points, d = x.shape
+    C = n_points * n_samples
+
+    def grid(a: Tensor) -> Tensor:
+        a = a.to(device)
+        lead = a[:, None] if a.dim() >= 1 else a
+        return lead.expand((n_points, n_samples) + tuple(a.shape[1:])) \
+            .reshape((C,) + tuple(a.shape[1:]))
+
+    adapt_b = map_state(grid, adapt_state)
+    pos = x[:, None, :].expand(n_points, n_samples, d).reshape(C, d)
+    entry = _rollout(kernel, C, n, device, None if seeded else generator)
+    if seeded:
+        generator = entry.generator.manual_seed(seed)
+    frozen = entry.kernel
+    state = frozen.init(generator, n_chains=C, position=pos,
+                        adapt_state=adapt_b)
+    if frozen.graph_step and not eager and device.type == "cuda" and n:
+        if entry.blocks is None:
+            entry.blocks = StepBlocks(frozen, generator, state,
+                                      min(n, MAX_GRAPH_STEPS))
+        else:
+            map_state(lambda dst, src: dst.copy_(src), entry.blocks.state,
+                      state)
+        return entry.blocks.advance(n).position \
+            .reshape(n_points, n_samples, d).clone()
+    for t in range(n):
+        if seeded and not frozen.graph_step:
+            # a step whose draws depend on the data (ASSS's shrinkage trips,
+            # NUTS's doublings) would shift every later step's draws of
+            # one rollout against another's: each step starts afresh
+            generator.manual_seed(hash((seed, t)) & (2**63 - 1))
+        state = frozen.step(state, generator)
+    return state.position.reshape(n_points, n_samples, d)
 
 
 def get_init_adapt_state(kernel, generator, position=None,

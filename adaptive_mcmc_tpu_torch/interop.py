@@ -19,6 +19,14 @@ kernel state crosses as numpy arrays:
 * :func:`nuts_state_from_numpy` and :func:`nuts_state_to_numpy` do the same
   for ``NUTSState`` (its dual-averaging and Welford states included),
   dropping ``rng_key`` likewise.
+* :func:`mlp_from_numpy` turns the contraction estimators' JAX
+  ``MLPParams(weights, biases)`` (numpy leaves, weights in (in, out)
+  layout) into the port's ``LipschitzMLP``; :func:`mlp_to_numpy` gives
+  back the ``(weights, biases)`` pair of numpy tuples that
+  ``MLPParams(*pair)`` takes.
+* :func:`prices_from_numpy` and :func:`prices_to_numpy` carry the
+  ε-auction's column duals, so that a JAX solve's prices warm-start the
+  port's (``prices_init``) and back.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from adaptive_mcmc_tpu_torch.contraction.lipschitz import LipschitzMLP
 from adaptive_mcmc_tpu_torch.kernels.arwmh import ARWMHAdaptState, ARWMHState
 from adaptive_mcmc_tpu_torch.kernels.asss import ASSSAdaptState, ASSSState
 from adaptive_mcmc_tpu_torch.kernels.nuts import (
@@ -154,3 +163,31 @@ def nuts_state_to_numpy(state: NUTSState) -> NUTSState:
             welford=WelfordState(*map(_host, a.welford)),
         ),
     )
+
+
+def mlp_from_numpy(params, device=None) -> LipschitzMLP:
+    """A ``LipschitzMLP`` holding ``params.weights`` / ``params.biases``."""
+    weights = [np.asarray(w, np.float32) for w in params.weights]
+    mlp = LipschitzMLP(weights[0].shape[0], weights[0].shape[1],
+                       device=device)
+    with torch.no_grad():
+        for dst, src in zip(mlp.weights, weights):
+            dst.copy_(_f32(src, device))
+        for dst, src in zip(mlp.biases, params.biases):
+            dst.copy_(_f32(src, device))
+    return mlp
+
+
+def mlp_to_numpy(mlp: LipschitzMLP) -> tuple:
+    """``(weights, biases)``, each a tuple of numpy arrays."""
+    return (tuple(_host(w) for w in mlp.weights),
+            tuple(_host(b) for b in mlp.biases))
+
+
+def prices_from_numpy(prices, device=None) -> torch.Tensor:
+    """Auction prices (m,) or (B, m) as a float32 tensor on ``device``."""
+    return _f32(prices, device)
+
+
+def prices_to_numpy(prices: torch.Tensor) -> np.ndarray:
+    return _host(prices)

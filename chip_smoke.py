@@ -44,7 +44,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
 6. the ASSS main path: the same MCMC call with
    asss(..., ASSSConfig(fused=True)) (through K3), and the µs per step of a
    long step_n; then the lockstep step and the pipelined step_n (both
-   through K1) for 500 + 1500 steps from fresh positions under the adapted
+   through K1) for 250 + 750 steps from fresh positions under the adapted
    scale of the K3 run;
 7. the slice: MCMC(asss(diamonds(), ASSSConfig(fused=True))) and
    MCMC(arwmh(diamonds(), ARWMHConfig(fused=True))) at 1024 chains through
@@ -54,13 +54,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    gate unreliable);
    every path: posterior checks, launch counts (all counts set to 0 just
    before the path and read just after it) and chain-iters/s;
+   then the diagnostics (no kernel of csrc/ on their path; the counts set
+   to 0 before and read after): eight sets of 10000 draws, four from each
+   diamonds run, against the gold draws (10000, 26), evaluate_run's shape:
+   pth_moment_rmse, mmd_heuristic_many, wasserstein_sinkhorn,
+   max_sliced_wasserstein (1000 directions) and the batched ε-auction
+   (B = 8, n = m = 10000, cold, then warm-started from its own prices:
+   rounds per ε level, the dual certificate (D − P)/n ≤ ε_final in
+   float64, a permutation each), ms per auction round at block 1024, 128
+   and 16 from the CUDA graph and eagerly; at n = 2000 the auction from the
+   graph against eager=True bit for bit and within ε_final of the port's
+   native Hungarian, which equals SciPy's cost, and each metric on the card
+   against the CPU (rtol 1e-4); the Lipschitz-NN τ of the AR(1) kernel at
+   the estimator's defaults (ρ = 0.5, 0.9 within (0.6ρ, 1.15ρ)), of frozen
+   ARWMH and ASSS on N(0, 1) at figures.py's sizes (100 probes x 1000
+   samples, 8 batches, 100 steps: rollouts of 100000 chains), the host ms
+   of a frozen rollout step from the graph and eagerly, the decay curves
+   (n = 1, 4, 16; 10000 samples: τ(P) < 1, ARWMH's last below its first,
+   ASSS's every τ below 1) and invariance_ks at 10^6 samples (< 1.5 x the
+   null threshold; the wrong-target control > 3 x);
 8. SA through K1: the graph run of 100 + 100 steps at 1024 chains against
    the eager loop bit for bit (3 K1 launches per step in both), then
    MCMC(sa(eight_schools_noncentered()), num_warmup=2500,
    num_samples=25000, thinning=10, n_chains=1024) against the quadrature
    truths of mu and log tau, K1 launched 3 x 27500 times; NUTS at 1024
    chains, its machine from the CUDA graph: step_n of 100 then collect_n of
-   50 frames at thinning 2 against the eager blocks bit for bit (final
+   25 frames at thinning 2 against the eager blocks bit for bit (final
    state, frames, the generator's next draws, trips), the trial of trips
    per graph replay (GRAPH_TRIPS set to 8, 16, 32, 64 in turn),
    MCMC(nuts(eight_schools_noncentered()),
@@ -75,8 +94,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (adaptive_mcmc_tpu_torch.bench.main(): five numeric cells);
    one step of entry(); then the host time per step, kernels per step
    (the six largest by device time) and device idle share of the ARWMH
-   lockstep step and the SA step, and per trip of the NUTS machine, eager
-   and from the graph
+   lockstep step and the SA step, per trip of the NUTS machine, eager
+   and from the graph, and per auction round from the graph at each block
+   width
    (torch.profiler; last, because the profiler once on slows every later
    launch of the process);
 9. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
@@ -103,7 +123,9 @@ K2_RTOL, K2_ATOL = 2e-5, 2e-6
 # its plain version round alike
 K3_RTOL, K3_ATOL = 2e-5, 2e-6
 N_CHAINS, NUM_WARMUP, NUM_SAMPLES, THINNING = 4096, 5000, 20000, 10
-K1_ASSS_WARMUP, K1_ASSS_SAMPLES = 500, 1500
+# the depths below marked "time" are kept short so that the diagnostics
+# phase fits in the script's time
+K1_ASSS_WARMUP, K1_ASSS_SAMPLES = 250, 750                      # time
 # the graph run against the eager loop, and the profiled windows of each
 GRAPH_CHECK_WARMUP, GRAPH_CHECK_SAMPLES = 500, 1500
 PROFILE_STEPS = {"eager": 200, "graph": 1000}
@@ -139,18 +161,34 @@ SA_PROFILE_STEPS = {"eager": 50, "graph": 300}
 # machine trips per CUDA graph replay; the profiled windows (transitions)
 NUTS_CHAINS = 1024
 NUTS_CHECK_WARMUP, NUTS_CHECK_STEPS = 100, 100
-NUTS_CHECK_FRAMES, NUTS_CHECK_THINNING = 50, 2
+NUTS_CHECK_FRAMES, NUTS_CHECK_THINNING = 25, 2                  # time
 NUTS_WARMUP, NUTS_SAMPLES = 700, 500
 NUTS_KIDIQ_WARMUP, NUTS_KIDIQ_SAMPLES = 500, 500
 NUTS_LOG_TAU_TOL, NUTS_SD_LOG_TAU_TOL, NUTS_MU_TOL = 0.045, 0.06, 0.25
 NUTS_BLOCK_TRIAL, NUTS_TRIAL_STEPS = (8, 16, 32, 64), 100
 # short profiled windows: torch.profiler's processing grows with its events,
 # some 360 kernels per trip (a 50-transition window took over a minute)
-NUTS_PROFILE_STEPS = {"eager": 2, "graph": 10}
+NUTS_PROFILE_STEPS = {"eager": 2, "graph": 5}                  # time
 # the eight-schools tau median of every run, by run
 TAU_MEDIANS = {}
 # the drivers on the card: ARWMH on std_normal(3) at 64 chains
 DRIVER_CHAINS, DRIVER_WARMUP, DRIVER_SAMPLES, DRIVER_CHUNK = 64, 100, 400, 200
+# the diagnostics phase: evaluate_run's shape (8 sets of 10000 draws, four
+# from each phase-7 diamonds run, against the gold draws); the checks
+# against the Hungarian, SciPy, the CPU and eager at DIAG_CHECK_N (Sinkhorn
+# and the exact W against the CPU on DIAG_SINKHORN_CPU sets: the CPU's
+# Sinkhorn at n = 2000 takes seconds per set); the timed auction rounds
+DIAG_N, DIAG_SETS_PER_RUN, DIAG_FRAMES = 10000, 4, 40
+DIAG_CHECK_N, DIAG_SINKHORN_CPU, DIAG_RTOL = 2000, 2, 1e-4
+DIAG_DIRECTIONS, DIAG_TIMED_ROUNDS, DIAG_PROFILED_ROUNDS = 1000, 256, 64
+# the AR(1) kernel (tests/test_contraction.py's band) at the estimator's
+# defaults; frozen ARWMH and ASSS at figures.py's sizes; the decay curves;
+# invariance at the notebook's size
+AR1_RHOS, AR1_SIGMA, AR1_POINTS = (0.5, 0.9), 0.3, 24
+FIG_POINTS, FIG_SAMPLES, FIG_BATCHES, FIG_STEPS = 100, 1000, 8, 100
+DIAG_TIMED_ROLLOUTS = 20
+DECAY_NS, DECAY_SAMPLES = (1, 4, 16), 10_000
+INVARIANCE_SAMPLES = 1_000_000
 # the TPU kernels the instantiations replace
 K2_REPLACES = "adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426"
 K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
@@ -1187,6 +1225,344 @@ def check_entry() -> None:
           f"the card, finite")
 
 
+# ---------------------------------------------------------------------------
+# The diagnostics: sample-quality metrics, the ε-auction, sample_pnx, the
+# Lipschitz-NN contraction estimators, invariance and contraction curves.
+# ---------------------------------------------------------------------------
+
+def diamond_sets(draws) -> list:
+    """DIAG_SETS_PER_RUN sets of DIAG_N draws (T, C, d) -> (DIAG_N, d)
+    each: DIAG_FRAMES frames spread over the run, of a block of
+    DIAG_N / DIAG_FRAMES chains per set."""
+    T, C, d = draws.shape
+    per = DIAG_N // DIAG_FRAMES
+    frames = draws[::T // DIAG_FRAMES][:DIAG_FRAMES]
+    return [frames[:, j * per:(j + 1) * per].reshape(DIAG_N, d).contiguous()
+            for j in range(DIAG_SETS_PER_RUN)]
+
+
+def timed(fn):
+    """(fn(), host seconds), the clock closed by torch.cuda.synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def dual_certificate(cost, col, prices) -> float:
+    """(D − P) / n in float64 for benefit b = −cost and the auction's
+    prices: D = Σ_j p_j + Σ_i max_j (b_ij − p_j), P = Σ_i b_{i,σ(i)}.  For a
+    complete assignment under ε-complementary slackness it is at most ε."""
+    b = -cost.double()
+    p = prices.double()
+    n = b.shape[0]
+    dual = p.sum() + (b - p[None, :]).max(dim=1).values.sum()
+    primal = b[torch.arange(n, device=b.device), col].sum()
+    return float((dual - primal) / n)
+
+
+def is_permutation(col, n: int) -> bool:
+    return bool((torch.bincount(col, minlength=n) == 1).all())
+
+
+def levels_line(ta) -> str:
+    return ", ".join(f"ε {eps:.4g}: {run} rounds ({live} live)"
+                     for eps, run, live in ta.last_levels)
+
+
+def check_metrics(amt, sets, card: str) -> dict:
+    """The metrics at evaluate_run's shape (8 sets of 10000 diamonds draws
+    against the gold draws), the auction's dual certificate, and at
+    DIAG_CHECK_N the auction against the Hungarian, the Hungarian against
+    SciPy, each metric against the CPU, and the graph against eager."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsap
+    from adaptive_mcmc_tpu_torch.metrics import assignment as ta
+    from adaptive_mcmc_tpu_torch.metrics import sliced as tsl
+    m = amt.metrics
+    dev = torch.device("cuda")
+    gold = torch.tensor(gold_draws(amt), dtype=torch.float32, device=dev)
+    xs = torch.stack(sets)
+    S, n, d = xs.shape
+    times = {}
+    rmse, times["moment RMSE"] = timed(
+        lambda: [float(m.pth_moment_rmse(x, gold, 1.0)) for x in xs])
+    mmd, times["MMD (S = 8)"] = timed(
+        lambda: m.mmd_heuristic_many(xs, gold).cpu().numpy())
+    sink, times["Sinkhorn"] = timed(
+        lambda: [m.wasserstein_sinkhorn(x, gold) for x in xs])
+    g = torch.Generator("cuda").manual_seed(0)
+    msw, times["max-sliced"] = timed(lambda: [float(
+        m.max_sliced_wasserstein(x, gold, g, n_directions=DIAG_DIRECTIONS))
+        for x in xs])
+    costs, times["cost matrices"] = timed(lambda: torch.stack(
+        [m.minkowski_cost_matrix(x, gold) for x in xs]))
+    rows = torch.arange(n, device=dev)
+    auction = {}
+    for label, init in (("cold", None), ("warm", "cold")):
+        before = ta.graph_replays
+        (col, prices), secs = timed(lambda: ta.auction_assignment_batch(
+            costs, return_prices=True,
+            prices_init=None if init is None else auction[init][1]))
+        auction[label] = (col, prices)
+        eps_final = ta.last_levels[-1][0]
+        w = [float(costs[i][rows, col[i]].mean()) for i in range(S)]
+        gaps = [dual_certificate(costs[i], col[i], prices[i])
+                for i in range(S)]
+        require(all(is_permutation(c, n) for c in col),
+                f"auction ({label}): not a permutation")
+        require(max(gaps) <= eps_final,
+                f"auction ({label}): (D - P)/n {max(gaps)} > ε_final "
+                f"{eps_final}")
+        rounds = sum(r for _, r, _ in ta.last_levels)
+        times[f"auction {label}"] = secs
+        print(f"auction {label}, B = {S}, n = m = {n}: {secs:.3f} s, "
+              f"{rounds} rounds ({levels_line(ta)}), "
+              f"{ta.graph_replays - before} graph replays; W "
+              f"{[round(v, 6) for v in w]}; dual certificate (D - P)/n max "
+              f"{max(gaps):.3e} <= ε_final {eps_final:.3e}; on {card}")
+    print("diagnostics metrics on the diamonds sets (d = 26) against the "
+          f"gold draws (n = {n}): moment RMSE {[round(v, 6) for v in rmse]}, "
+          f"MMD {[round(float(v), 6) for v in mmd]}, Sinkhorn "
+          f"{[round(v, 6) for v in sink]}, max-sliced "
+          f"{[round(v, 6) for v in msw]}")
+    print("diagnostics metric seconds on " + card + ": " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items()))
+    timing = auction_round_times(ta, costs, auction["cold"][1], card)
+    del costs
+    check_small(amt, ta, tsl, xs[:, :DIAG_CHECK_N], gold[:DIAG_CHECK_N],
+                scipy_lsap, card)
+    return timing
+
+
+def check_small(amt, ta, tsl, xs, gold, scipy_lsap, card: str) -> None:
+    """At DIAG_CHECK_N: the auction (graph = eager bit for bit) within
+    ε_final of the port's Hungarian, which equals SciPy's cost; every
+    metric on the card against the CPU at rtol DIAG_RTOL."""
+    m = amt.metrics
+    S, n, _ = xs.shape
+    costs = torch.stack([m.minkowski_cost_matrix(x, gold) for x in xs])
+    (cg, pg), graph_s = timed(lambda: ta.auction_assignment_batch(
+        costs, return_prices=True))
+    eps_final = ta.last_levels[-1][0]
+    rounds = sum(r for _, r, _ in ta.last_levels)
+    (ce, pe), eager_s = timed(lambda: ta.auction_assignment_batch(
+        costs, return_prices=True, eager=True))
+    require(torch.equal(cg, ce) and torch.equal(pg, pe),
+            "auction: the graph run differs from eager=True")
+    print(f"auction at n = {n}, B = {S}: graph {graph_s:.3f} s, eager "
+          f"{eager_s:.3f} s for {rounds} rounds ({graph_s / rounds * 1e3:.4f}"
+          f" against {eager_s / rounds * 1e3:.4f} ms per round), equal bit "
+          f"for bit (assignments and prices) on {card}")
+    host = costs.double().cpu().numpy()
+    worst = 0.0
+    t_native = t_scipy = 0.0
+    for i in range(S):
+        t0 = time.perf_counter()
+        col = ta.linear_sum_assignment(host[i], solver="native")
+        t1 = time.perf_counter()
+        _, col_s = scipy_lsap(host[i])
+        t2 = time.perf_counter()
+        t_native, t_scipy = t_native + t1 - t0, t_scipy + t2 - t1
+        w_h = host[i][np.arange(n), col].mean()
+        w_s = host[i][np.arange(n), col_s].mean()
+        w_a = host[i][np.arange(n), cg[i].cpu().numpy()].mean()
+        require(abs(w_h - w_s) <= 1e-9 * max(1.0, w_s),
+                f"native Hungarian {w_h} against SciPy {w_s}")
+        require(w_a - w_h <= eps_final,
+                f"auction W {w_a} against the Hungarian {w_h}: over ε_final "
+                f"{eps_final}")
+        worst = max(worst, w_a - w_h)
+    print(f"at n = {n}: auction W - Hungarian W at most {worst:.3e} <= "
+          f"ε_final {eps_final:.3e}; native Hungarian = SciPy's cost on all "
+          f"{S}; host seconds for {S}: native {t_native:.3f}, SciPy "
+          f"{t_scipy:.3f}")
+    dirs = torch.randn((DIAG_DIRECTIONS, xs.shape[2]),
+                       generator=torch.Generator().manual_seed(1))
+    checks = {
+        "moment RMSE": lambda x, y, D: torch.stack(
+            [m.pth_moment_rmse(a, y, 1.0) for a in x]),
+        "MMD": lambda x, y, D: m.mmd_heuristic_many(x, y),
+        "Sinkhorn": lambda x, y, D: torch.tensor(
+            [m.wasserstein_sinkhorn(a, y) for a in x[:DIAG_SINKHORN_CPU]]),
+        "max-sliced": lambda x, y, D: torch.stack(
+            [tsl.sliced_from_directions(a, y, D).max() for a in x]),
+        "exact W": lambda x, y, D: torch.tensor(
+            [m.wasserstein_dist11_p(a, y) for a in x[:DIAG_SINKHORN_CPU]]),
+    }
+    errs = {}
+    for name, fn in checks.items():
+        got = fn(xs, gold, dirs.cuda()).cpu()
+        want = fn(xs.cpu(), gold.cpu(), dirs)
+        err = float(((got - want).abs() / want.abs()).max())
+        require(err <= DIAG_RTOL, f"{name} on the card against the CPU: "
+                                  f"relative error {err}")
+        errs[name] = err
+    print(f"metrics on the card against the CPU at n = {n}, largest "
+          f"relative error (rtol {DIAG_RTOL}): " + ", ".join(
+              f"{k} {v:.2e}" for k, v in errs.items()))
+
+
+def auction_round_times(ta, costs, prices, card: str) -> dict:
+    """ms per auction round at each block width of the ladder (B = 8,
+    n = 10000, from a fresh assignment at ε_final · 10), from the graph and
+    eagerly: host clock around DIAG_TIMED_ROUNDS rounds.  Returns the
+    auction object for the profiled window at the end."""
+    auction = ta._Auction(-costs, prices, eager=False)
+    eps = ta.last_levels[-1][0] * 10.0
+    out = {"auction": auction, "ms": {}}
+    k = ta.ROUNDS_PER_GRAPH
+    for width in (1024, 128, 16):
+        for eager in (True, False):
+            auction.eager = eager
+            auction.reset(eps)
+            auction._block(k, width)          # warm, and capture
+            auction._block(k, width)          # the graph's first replay
+            blocks = DIAG_TIMED_ROUNDS // k
+            _, secs = timed(lambda: [auction._block(k, width)
+                                     for _ in range(blocks)])
+            out["ms"][(width, eager)] = secs * 1e3 / (blocks * k)
+    auction.eager = False
+    print(f"auction ms per round, B = {costs.shape[0]}, n = m = "
+          f"{costs.shape[1]}, graph / eager: " + ", ".join(
+              f"block {w} {out['ms'][(w, False)]:.4f} / "
+              f"{out['ms'][(w, True)]:.4f}" for w in (1024, 128, 16))
+          + f" on {card}")
+    return out
+
+
+def profile_auction(timing: dict, card: str) -> None:
+    """Kernels per round and the device's idle share of auction rounds
+    replayed from the graph, each block width, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    from adaptive_mcmc_tpu_torch.metrics import assignment as ta
+    auction = timing["auction"]
+    k = ta.ROUNDS_PER_GRAPH
+    for width in (1024, 128, 16):
+        auction._block(k, width)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(DIAG_PROFILED_ROUNDS // k):
+                auction._block(k, width)
+            torch.cuda.synchronize()
+            host_us = (time.perf_counter() - t0) * 1e6
+        n_kernels, busy_us = device_activity(
+            prof, f"auction block {width}", DIAG_PROFILED_ROUNDS, "round")
+        print(f"auction block {width} from the graph: "
+              f"{n_kernels / DIAG_PROFILED_ROUNDS:.1f} kernels and "
+              f"{busy_us / DIAG_PROFILED_ROUNDS:.2f} µs busy per round, "
+              f"host {host_us / DIAG_PROFILED_ROUNDS:.2f} µs per round "
+              f"under the profiler, device idle share "
+              f"{1.0 - busy_us / host_us:.4f} on {card}")
+
+
+def ar1_sampler(rho: float, sigma: float):
+    """P(x, ·) = N(ρx, σ²) on the device of the probes: τ(P) = ρ."""
+    def sample_px(seed, X, n_samples):
+        gen = torch.Generator(X.device).manual_seed(seed)
+        noise = torch.randn((X.shape[0], n_samples, X.shape[1]),
+                            generator=gen, device=X.device)
+        return rho * X[:, None, :] + sigma * noise
+
+    return sample_px
+
+
+def rollout_ms(amt, kernel, adapt, X, eager: bool) -> float:
+    """Host ms per one-step frozen rollout of FIG_SAMPLES draws at each
+    probe point (sample_pnx, n = 1), after a warm call."""
+    amt.sample_pnx(kernel, 0, X, adapt, n=1, n_samples=FIG_SAMPLES,
+                   eager=eager)
+    _, secs = timed(lambda: [amt.sample_pnx(
+        kernel, s, X, adapt, n=1, n_samples=FIG_SAMPLES, eager=eager)
+        for s in range(DIAG_TIMED_ROLLOUTS)])
+    return secs * 1e3 / DIAG_TIMED_ROLLOUTS
+
+
+def check_contraction(amt, card: str) -> None:
+    """τ of the AR(1) kernel at the estimator's defaults against ρ; τ of
+    frozen ARWMH and ASSS on N(0, 1) at figures.py's sizes; the decay
+    curves; invariance at 10^6 and the wrong-target control."""
+    from adaptive_mcmc_tpu_torch import analysis as an
+    from adaptive_mcmc_tpu_torch import contraction as co
+    dev = torch.device("cuda")
+    g = torch.Generator("cuda").manual_seed(4)
+    X = torch.linspace(-3, 3, AR1_POINTS, device=dev)[:, None]
+    for rho in AR1_RHOS:
+        (tau, _, _), secs = timed(lambda: co.compute_wasserstein_contraction(
+            ar1_sampler(rho, AR1_SIGMA), g, X))
+        print(f"AR(1) ρ = {rho}: τ {float(tau):.4f} (band "
+              f"({0.6 * rho:.3f}, {1.15 * rho:.3f})), {secs:.3f} s at the "
+              f"defaults (1000 samples, 10 + 100 batches, 100 steps) on "
+              f"{card}")
+        require(0.6 * rho < float(tau) < 1.15 * rho, f"AR(1) τ {float(tau)}")
+    t1 = amt.std_normal(1)
+    frozen = {"ARWMH": an.frozen_arwmh(t1, device=dev),
+              "ASSS": an.frozen_asss(t1, device=dev)}
+    Xf = torch.linspace(-2.5, 2.5, FIG_POINTS, device=dev)[:, None]
+    k, adapt = frozen["ARWMH"]
+    graph_ms = rollout_ms(amt, k, adapt, Xf, eager=False)
+    eager_ms = rollout_ms(amt, k, adapt, Xf, eager=True)
+    asss_ms = rollout_ms(amt, *frozen["ASSS"], Xf, eager=True)
+    print(f"frozen rollout step at {FIG_POINTS * FIG_SAMPLES} chains, host "
+          f"ms: ARWMH from the graph {graph_ms:.4f}, eagerly {eager_ms:.4f}; "
+          f"ASSS (eager step) {asss_ms:.4f} on {card}")
+    for name, (k, adapt) in frozen.items():
+        (tau, _, _), secs = timed(lambda: co.compute_wasserstein_contraction(
+            co.make_sample_px(k, adapt), g, Xf,
+            sample_batch_size=FIG_SAMPLES, n_train_batches=FIG_BATCHES,
+            max_steps=FIG_STEPS))
+        print(f"frozen {name} on N(0, 1): τ {float(tau):.4f}, {secs:.3f} s "
+              f"({FIG_POINTS} probes x {FIG_SAMPLES} samples, "
+              f"{FIG_BATCHES} train and 100 eval batches, {FIG_STEPS} steps) "
+              f"on {card}")
+        require(np.isfinite(float(tau)), f"frozen {name} τ not finite")
+        taus_fn = an.taus_finite_difference if name == "ARWMH" \
+            else an.taus_finite_difference_arctan
+        xs = torch.linspace(-2, 2, 5, device=dev)
+        curve, secs = timed(lambda: an.contraction_decay_curve(
+            k, g, xs, adapt, ns=DECAY_NS, taus_fn=taus_fn,
+            n_samples=DECAY_SAMPLES).cpu().numpy())
+        print(f"frozen {name} decay curve, n = {DECAY_NS}: "
+              f"{[round(float(v), 4) for v in curve]} ({taus_fn.__name__}, "
+              f"{DECAY_SAMPLES} samples, {secs:.3f} s)")
+        require(curve[0] < 1.0, f"frozen {name}: τ(P) {curve[0]} >= 1")
+        if name == "ARWMH":
+            require(curve[-1] < curve[0], f"frozen {name}: no decay")
+        else:
+            require(bool((curve < 1.0).all()), f"frozen {name}: τ >= 1")
+
+    def normal(gen, n):
+        return torch.randn((n, 1), generator=gen, device=gen.device)
+
+    thr = an.ks_null_threshold(INVARIANCE_SAMPLES)
+    for name, k in (("ARWMH", amt.arwmh(t1)), ("ASSS", amt.asss(t1)),
+                    ("ARWMH, target N(2, 1)",
+                     amt.arwmh(amt.mvn(np.array([2.0]), np.eye(1))))):
+        ks, secs = timed(lambda: an.invariance_ks(k, normal, g,
+                                                  INVARIANCE_SAMPLES))
+        control = "N(2" in name
+        print(f"invariance KS, {name}, {INVARIANCE_SAMPLES} samples: "
+              f"{ks:.6f} ({ks / thr:.3f} x the null threshold {thr:.6f}), "
+              f"{secs:.3f} s")
+        require(ks > 3.0 * thr if control else ks < 1.5 * thr,
+                f"invariance KS {name}: {ks}")
+
+
+def run_diagnostics(amt, sets, counters, card: str) -> dict:
+    """The diagnostics phase; returns what the profiled window at the end
+    needs.  No kernel of csrc/ is on its path."""
+    t0 = time.perf_counter()
+    reset_launches(*counters)
+    timing = check_metrics(amt, sets, card)
+    check_contraction(amt, card)
+    require(all(mod.launches == 0 for mod in counters),
+            "the diagnostics launched a kernel of csrc/")
+    print(f"diagnostics phase: {time.perf_counter() - t0:.1f} s")
+    return timing
+
+
 def layouts(amt, build, chains: dict) -> dict:
     """Lanes per chain of both K1 kernels at the main path's (4096, 10) and
     of every K2 and K3 instantiation, printed with the warps its check's
@@ -1332,6 +1708,7 @@ def main() -> int:
     launches = {("arwmh_fused", "eight_schools_noncentered"): k2_main,
                 ("asss_fused", "eight_schools_noncentered"): k3_main}
     rates = {}
+    sets = []
     paths = [("diamonds", "ASSS", SLICE_CHAINS, SLICE_WARMUP, SLICE_SAMPLES),
              ("diamonds", "ARWMH", SLICE_CHAINS, ARWMH_DIAMONDS_WARMUP,
               ARWMH_DIAMONDS_SAMPLES)]
@@ -1352,6 +1729,7 @@ def main() -> int:
         require(mod.launches > 0, f"{label} never launched {lib}")
         if name == "diamonds":
             diamonds_gate(amt, draws, label)
+            sets += diamond_sets(draws)
         elif name == "kidiq":
             kidiq_gate(amt, draws, label)
         else:
@@ -1364,6 +1742,12 @@ def main() -> int:
         for (sampler, name), rate in rates.items()))
 
     elapsed("the slice")
+
+    # the diagnostics: metrics on the diamonds draws, the auction, the
+    # contraction estimators, invariance
+    diag = run_diagnostics(amt, sets, counters, card)
+    del sets
+    elapsed("the diagnostics")
 
     # 8. SA through K1, the drivers, the bench and entry()
     check_sa_graph_equals_eager(amt, k1)
@@ -1406,6 +1790,7 @@ def main() -> int:
                  SA_CHAINS, SA_PROFILE_STEPS, card)
     prof = {eager: profile_nuts(amt, tn, nuts_state, eager, card)
             for eager in (True, False)}
+    profile_auction(diag, card)
     print(f"NUTS trip, eager -> graph: host time "
           f"{prof[True]['host_ms']:.4f} -> {prof[False]['host_ms']:.4f} ms, "
           f"kernels {prof[True]['kernels']:.1f} -> "

@@ -698,3 +698,94 @@ def test_nuts_mcmc_runs_from_the_graph(cuda):
     assert draws.is_cuda and draws.shape == (20, 256, 10)
     assert torch.isfinite(draws).all()
     assert "Step size" in mcmc.diagnostics_str()
+
+
+# -- the diagnostics: metrics, the auction's graph, sample_pnx's graph --
+
+def _clouds_np(n, d, seed, shift=0.5):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((n, d)).astype(np.float32),
+            (rng.standard_normal((n, d)) + shift).astype(np.float32))
+
+
+def test_auction_graph_equals_eager_and_the_cpu(cuda):
+    """The batched auction from its CUDA graphs equals eager=True bit for
+    bit (assignments and prices), and both equal the CPU solve of the same
+    costs: every round is exact float arithmetic."""
+    from adaptive_mcmc_tpu_torch.metrics import assignment as ta
+
+    ref, _ = _clouds_np(600, 4, 0)
+    costs = torch.stack([amt.metrics.minkowski_cost_matrix(
+        torch.tensor(_clouds_np(600, 4, s)[1]), torch.tensor(ref))
+        for s in (1, 2, 3)])
+    before = ta.graph_replays
+    cg, pg = ta.auction_assignment_batch(costs.to(cuda), return_prices=True)
+    assert ta.graph_replays > before
+    replays = ta.graph_replays
+    ce, pe = ta.auction_assignment_batch(costs.to(cuda), return_prices=True,
+                                         eager=True)
+    assert ta.graph_replays == replays
+    assert torch.equal(cg, ce) and torch.equal(pg, pe)
+    cc, pc = ta.auction_assignment_batch(costs, return_prices=True)
+    assert torch.equal(cg.cpu(), cc) and torch.equal(pg.cpu(), pc)
+    warm = ta.auction_assignment_batch(costs.to(cuda), prices_init=pg)
+    assert torch.equal(warm.cpu(), ta.auction_assignment_batch(
+        costs, prices_init=pc))
+
+
+def test_metrics_on_the_card_match_the_cpu(cuda):
+    """Every metric on the card against the same function on the CPU, same
+    arrays, rtol 1e-4."""
+    from adaptive_mcmc_tpu_torch.metrics import sinkhorn as tsk
+    from adaptive_mcmc_tpu_torch.metrics import sliced as tsl
+
+    m = amt.metrics
+    x, y = (torch.tensor(a) for a in _clouds_np(700, 6, 5))
+    xs = torch.stack([torch.tensor(_clouds_np(700, 6, s)[1])
+                      for s in (6, 7)])
+    dirs = torch.randn((128, 6), generator=torch.Generator().manual_seed(0))
+    pairs = [
+        (lambda a, b, c, D: m.pth_moment_rmse(a, b, 1.0)),
+        (lambda a, b, c, D: m.wasserstein_1d(a.T, b.T)),
+        (lambda a, b, c, D: tsl.sliced_from_directions(a, b, D)),
+        (lambda a, b, c, D: m.median_sq_dist(b)),
+        (lambda a, b, c, D: m.mmd2_unbiased(a, b, 0.3)),
+        (lambda a, b, c, D: m.mmd_heuristic(a, b)),
+        (lambda a, b, c, D: m.mmd_heuristic_many(c, b)),
+        (lambda a, b, c, D: m.minkowski_cost_matrix(a, b)),
+        (lambda a, b, c, D: torch.tensor(m.wasserstein_sinkhorn(a, b))),
+        (lambda a, b, c, D: torch.tensor(m.wasserstein_dist11_p(a, b))),
+    ]
+    for fn in pairs:
+        want = fn(x, y, xs, dirs)
+        got = fn(x.to(cuda), y.to(cuda), xs.to(cuda), dirs.to(cuda))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+    cost = tsk._euclidean_cost(x, y)
+    eps = torch.mean(cost) * 0.05
+    want = tsk._solve(cost, eps, 0.05, 500)
+    got = tsk._solve(cost.to(cuda), eps.to(cuda), 0.05, 500)
+    assert got[4] == want[4]
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("name", ["arwmh", "sa"])
+def test_sample_pnx_same_seed_same_rollout_from_the_graph(cuda, name):
+    """A seeded rollout on the card: the first call runs eagerly and
+    captures the graph, the second replays it; both equal eager=True, and
+    another seed differs."""
+    from adaptive_mcmc_tpu_torch.infer import mcmc as im
+
+    t = amt.std_normal(2)
+    k = amt.arwmh(t) if name == "arwmh" else \
+        amt.sa(t, amt.SAConfig(adapt_state_size=16))
+    adapt = amt.get_init_adapt_state(k, torch.Generator().manual_seed(3),
+                                     position=torch.zeros(2))
+    x = torch.tensor([[0.0, 0.0], [3.0, 0.0]], device=cuda)
+    a = amt.sample_pnx(k, 7, x, adapt, n=5, n_samples=512)
+    b = amt.sample_pnx(k, 7, x, adapt, n=5, n_samples=512)
+    assert a.is_cuda and any(e.blocks is not None and e.blocks._replay
+                             for e in im._ROLLOUTS.values())
+    e = amt.sample_pnx(k, 7, x, adapt, n=5, n_samples=512, eager=True)
+    assert torch.equal(a, b) and torch.equal(a, e)
+    assert not torch.equal(a, amt.sample_pnx(k, 8, x, adapt, n=5,
+                                             n_samples=512))
