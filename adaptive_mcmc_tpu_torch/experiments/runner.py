@@ -1,0 +1,255 @@
+"""Experiment runners: w_eval and lr_decay sweeps (PyTorch).
+
+Counterpart of ``adaptive_mcmc_tpu/experiments/runner.py``.  The seed axis
+is a chain axis: one batched run carries every seed (each "chain" one
+seed's independent chain), so a 100-seed sweep is one run on the card.
+Outputs land as .npz per (target, kernel): thinned samples (seeds, draws,
+dim), the potential energy and the config JSON, with a SweepManifest for
+restartability; the same files, keys and layouts as the JAX package's.
+
+Every entry point runs on the card unless ``device="cpu"`` is passed; a
+run's seed is ``torch.Generator(device).manual_seed(seed0)`` and its wall
+clock ends in ``torch.cuda.synchronize()``.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Callable, Dict
+
+import numpy as np
+import torch
+
+from adaptive_mcmc_tpu_torch import kernels as _kernels
+from adaptive_mcmc_tpu_torch import models as _models
+from adaptive_mcmc_tpu_torch.experiments.configs import (
+    LR_DECAYS,
+    OUT_ROOT,
+    RunConfig,
+)
+from adaptive_mcmc_tpu_torch.infer.collect import collect_states_logscale
+from adaptive_mcmc_tpu_torch.utils.checkpoint import SweepManifest
+
+TARGETS: Dict[str, Callable] = {
+    "eight_schools": _models.eight_schools_noncentered,
+    "eight_schools_centered": _models.eight_schools_centered,
+    "diamonds": _models.diamonds,
+    "kidiq": _models.kidiq,
+}
+
+
+def run_device(device=None) -> torch.device:
+    """The device of a run: ``device``, or the card.  Raises where no CUDA
+    device is present and none was named (nothing runs on the CPU
+    unasked)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' (CLI "
+                           "--device cpu) to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _driver_name(kernel, kernel_name: str) -> str:
+    """Which driver run_mcmc_sharded will pick for this kernel + the
+    w_eval extra_fields (provenance stamp for the saved npz)."""
+    fields = {"position", "potential_energy"}
+    if kernel_name in ("arwmh", "rwm", "asss"):
+        fields.add("as_change")
+    if getattr(kernel, "collect_n", None) is not None and fields <= set(
+        getattr(kernel, "collect_fields", ())
+    ):
+        return "collect_n"
+    if getattr(kernel, "step_n", None) is not None:
+        return "step_n"
+    return "lockstep"
+
+
+def build_kernel(name: str, target, *, lr_decay: float, num_warmup: int):
+    if name in ("arwmh", "rwm"):
+        cfg = _kernels.ARWMHConfig(
+            lr_decay=lr_decay, num_warmup=num_warmup,
+            adapt=(name == "arwmh"),
+        )
+        return _kernels.arwmh(target, cfg)
+    if name == "asss":
+        return _kernels.asss(target, _kernels.ASSSConfig(
+            lr_decay=lr_decay, num_warmup=num_warmup))
+    if name == "nuts":
+        return _kernels.nuts(target, _kernels.NUTSConfig(
+            num_warmup=num_warmup))
+    if name == "sa":
+        return _kernels.sa(target, _kernels.SAConfig(num_warmup=num_warmup))
+    raise ValueError(f"unknown kernel {name!r}")
+
+
+def run_w_eval(config: RunConfig, verbose: bool = True, *,
+               device=None) -> Path:
+    """Run the w_eval experiment for one (target, kernel): all seeds as one
+    chain batch; save thinned draws + PE + the run's meta."""
+    from adaptive_mcmc_tpu_torch.parallel import chain_mesh, run_mcmc_sharded
+
+    out_dir = Path(config.out_dir) / "w_eval" / config.target
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_path = out_dir / f"{config.kernel}.npz"
+    manifest = SweepManifest(out_dir / "manifest.json")
+    key = f"{config.kernel}"
+    if manifest.is_done(key) and out_path.exists():
+        if verbose:
+            print(f"[skip] {out_path} already complete")
+        return out_path
+
+    dev = chain_mesh(config.mesh_devices, devices=[run_device(device)])
+    target = TARGETS[config.target]()
+    kernel = build_kernel(
+        config.kernel, target,
+        lr_decay=config.lr_decay, num_warmup=config.num_warmup,
+    )
+    n_chains = config.n_seeds * config.chains_per_seed
+    # one device: the chain count is already a multiple of the mesh size
+    n_padded = n_chains
+
+    generator = torch.Generator(dev).manual_seed(config.seed0)
+    synchronize(dev)
+    t0 = time.perf_counter()
+    # bound single driver calls, as the JAX runner bounds device programs
+    max_steps = {"nuts": 20_000, "sa": 50_000}.get(config.kernel, 500_000)
+    F = max(1, config.fan_out)
+    samples, extras, last = run_mcmc_sharded(
+        kernel,
+        generator,
+        config.num_warmup,
+        config.num_samples,
+        thinning=config.thinning,
+        n_chains=n_padded,
+        mesh=dev,
+        max_steps_per_call=max_steps,
+        fan_out=F,
+        extra_fields=("potential_energy", "as_change")
+        if kernel.name in ("arwmh", "rwm", "asss")
+        else ("potential_energy",),
+    )
+    synchronize(dev)
+    wall = time.perf_counter() - t0
+
+    def _per_seed(a):
+        """(frames, n_padded*F, ...) -> (seeds, frames*F, ...): clones are
+        contiguous per chain; pooled into the seed's draw axis."""
+        a = a.cpu().numpy()
+        a = a.reshape(a.shape[0], n_padded, F, *a.shape[2:])[:, :n_chains]
+        a = np.moveaxis(a, 0, 1)  # (seeds, frames, F, ...)
+        return a.reshape(a.shape[0], -1, *a.shape[3:])
+
+    total_iters = (config.num_warmup + config.num_samples) * n_chains
+    meta = {
+        "config": json.loads(config.to_json()),
+        "wall_seconds": wall,
+        "chain_iters_per_sec": total_iters / wall,
+        # provenance stamp: which step driver generated these draws
+        # (pipelined in-driver collector / pipelined step_n / plain
+        # lockstep).  Mirrors run_mcmc_sharded's choice.
+        "driver": _driver_name(kernel, config.kernel),
+    }
+    np.savez_compressed(
+        out_path,
+        samples=_per_seed(samples),  # (seeds, draws, dim)
+        potential_energy=_per_seed(extras["potential_energy"]),
+        meta=json.dumps(meta),
+    )
+    manifest.mark_done(key)
+    if verbose:
+        print(
+            f"[done] {out_path}: {total_iters / wall:,.0f} chain-iters/s "
+            f"({wall:.1f}s)"
+        )
+    return out_path
+
+
+def run_lr_decay(
+    target_name: str,
+    kernel_name: str,
+    *,
+    n_pow: int = 6,
+    n_seeds: int = 100,
+    lr_decays=LR_DECAYS,
+    out_dir: str = OUT_ROOT,
+    seed0: int = 0,
+    verbose: bool = True,
+    device=None,
+):
+    """Log-scale state-trajectory sweep: for each lr_decay, ONE batched run
+    carries all seeds; saves i / position / PE / as_change trajectories on
+    the log grid, plus the small committable summary CSV
+    (experiments/summaries.py) of across-seed quantiles.
+
+    Skip predicates are artifact-keyed (not manifest-only): a cell is
+    complete iff its summary CSV is on disk; a surviving npz with a
+    missing summary is backfilled without re-running the sweep."""
+    from adaptive_mcmc_tpu_torch.experiments.summaries import (
+        summary_path_for,
+        write_lr_decay_summary,
+    )
+
+    target = TARGETS[target_name]()
+    base = Path(out_dir) / "lr_decay" / target_name / kernel_name
+    manifest = SweepManifest(base / "manifest.json")
+    out_paths = []
+    for lr_decay in lr_decays:
+        tag = f"{lr_decay:.4g}"
+        out_path = base / f"decay_{tag}.npz"
+        summary = summary_path_for(out_path)
+        if manifest.is_done(tag) and summary.exists():
+            out_paths.append(out_path)
+            continue
+        if out_path.exists() and not summary.exists():
+            # the trajectories survived but the summary did not: derive
+            # it, do not re-run 10^n_pow steps
+            write_lr_decay_summary(
+                out_path,
+                {"target": target_name, "kernel": kernel_name,
+                 "lr_decay": tag, "n_pow": n_pow, "backfilled": True},
+            )
+            manifest.mark_done(tag)
+            out_paths.append(out_path)
+            continue
+        dev = run_device(device)
+        kernel = build_kernel(
+            kernel_name, target, lr_decay=lr_decay, num_warmup=0
+        )
+        # bound driver calls: ASSS steps cost ~5-10x ARWMH's, so cap
+        # tighter
+        cap = 40_000 if kernel_name == "asss" else 200_000
+        synchronize(dev)
+        t0 = time.perf_counter()
+        states, _ = collect_states_logscale(
+            kernel, torch.Generator(dev).manual_seed(seed0), n_pow=n_pow,
+            n_chains=n_seeds, max_steps_per_call=cap, device=dev,
+        )
+        synchronize(dev)
+        wall = time.perf_counter() - t0
+        base.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            out_path,
+            i=states.i.cpu().numpy(),
+            position=states.position.cpu().numpy(),
+            potential_energy=states.potential_energy.cpu().numpy(),
+            as_change=states.as_change.cpu().numpy(),
+        )
+        write_lr_decay_summary(
+            out_path,
+            {"target": target_name, "kernel": kernel_name,
+             "lr_decay": tag, "n_pow": n_pow,
+             "wall_seconds": f"{wall:.2f}"},
+        )
+        manifest.mark_done(tag)
+        if verbose:
+            print(f"[done] {out_path} ({wall:.1f}s)")
+        out_paths.append(out_path)
+    return out_paths

@@ -175,6 +175,93 @@ class StepBlocks:
         return self.state
 
 
+class BlockMachine:
+    """A pipelined machine's driver (NUTS's trips, ASSS's iterations):
+    blocks of ``block`` steps until every chain is done, ``done`` read on
+    the host between blocks.  Eagerly (``run`` given no generator) a block
+    is a Python loop over steps.  On the card the machine lives in static
+    buffers: the first block runs eagerly under a mode that refuses host
+    reads (a ``potential_fn`` that reads one cannot be captured), then one
+    block is captured into a CUDA graph with the generator registered, and
+    replayed; it draws what the eager blocks draw.  The call's constants
+    (``n_steps``, the first iteration, the thinning) are tensors in the
+    buffers, never numbers baked into the graph.  A call without frame
+    buffers (``step_n``) keeps its graph for the next one with the same
+    shapes and generator.  A call with frames (``collect_n``) keeps none:
+    its frame buffers are captured with it and handed back as they are, so
+    none is copied or outlives the call.
+
+    ``label`` names the machine in a refusal (``"nuts.step_n"``);
+    ``frames`` are the keys of the frame buffers in ``ctx``."""
+
+    def __init__(self, label: str, frames: tuple):
+        self.label, self.frames = label, frames
+        self.cached = None   # (key, generator, p buffers, ctx buffers, replay)
+
+    @staticmethod
+    def running(p: dict, ctx: dict) -> bool:
+        return bool((p["done"] < ctx["n_steps"]).any())
+
+    def run(self, p: dict, ctx: dict, step, block: int, count,
+            generator=None, saved=None):
+        """Advance ``p`` to its end by ``step(p, ctx) -> p``; returns
+        (p, ctx).  ``count(n)`` is told the steps of each block run.
+        ``generator`` given: from the CUDA graph (the tensors are on the
+        card); a refused first block puts the generator back to ``saved``,
+        its state before the call."""
+        if generator is None:
+            while self.running(p, ctx):
+                for _ in range(block):
+                    p = step(p, ctx)
+                count(block)
+            return p, ctx
+        keep = not any(k in ctx for k in self.frames)
+        key = (block, tuple((k, tuple(t.shape), t.dtype, t.device)
+                            for k, t in sorted(ctx.items())),
+               tuple((k, tuple(t.shape), t.dtype)
+                     for k in sorted(p) for t in state_tensors(p[k])))
+        if keep and self.cached is not None and self.cached[0] == key \
+                and self.cached[1] is generator:
+            _, _, bp, bc, replay = self.cached
+            for k in p:
+                map_state(lambda dst, src: dst.copy_(src), bp[k], p[k])
+            for k in ctx:
+                bc[k].copy_(ctx[k])
+        else:
+            bp = {k: map_state(torch.clone, v) for k, v in p.items()}
+            bc = {k: v if k in self.frames else v.clone()
+                  for k, v in ctx.items()}
+            replay = None
+
+        def run_block() -> None:
+            q = bp
+            for _ in range(block):
+                q = step(q, bc)
+            for k in bp:
+                map_state(lambda dst, src: dst if dst is src
+                          else dst.copy_(src), bp[k], q[k])
+
+        if self.running(bp, bc):
+            if replay is None:
+                try:
+                    with _NoHostRead():
+                        run_block()
+                except _HostRead as e:
+                    generator.set_state(saved)
+                    raise _capture_error(self.label, e) from e
+                count(block)
+                replay = _capture(run_block, generator, self.label)
+                if keep:
+                    self.cached = (key, generator, bp, bc, replay)
+            while self.running(bp, bc):
+                replay()
+                count(block)
+        if not keep:
+            return bp, bc
+        return ({k: map_state(torch.clone, v) for k, v in bp.items()},
+                {k: v.clone() for k, v in bc.items()})
+
+
 def advancer(kernel, generator, state, block: int, eager: bool = False):
     """``advance(state, n) -> state``: ``n`` steps of ``kernel`` as
     :func:`run_mcmc` takes them.  Through ``step_n`` where the kernel has

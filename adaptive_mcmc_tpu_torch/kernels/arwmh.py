@@ -22,6 +22,7 @@ K1 (``ops/cholesky.py``).  ``ARWMHConfig(fused=True)`` adds ``step_n`` and
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional
 
 import torch
@@ -47,8 +48,10 @@ class ARWMHConfig:
     adapt: bool = True          # False freezes loc/scale/step-size (plain RWM
                                 # with a fixed Cholesky proposal)
     # Fused whole-sweep driver (kernel K2): step_n / collect_n run the
-    # transition loop in one launch.  None resolves to off.  Its random
-    # streams differ from the lockstep step's: equal in distribution only.
+    # transition loop in one launch.  None resolves to on where a CUDA
+    # device is present, the sampler adapts, d <= 16 and AMT_ARWMH_FUSED=1
+    # (the JAX package's opt-in), else off.  Its random streams differ from
+    # the lockstep step's: equal in distribution only.
     fused: Optional[bool] = None
 
 
@@ -154,8 +157,12 @@ def arwmh(target, config: ARWMHConfig = ARWMHConfig()) -> Kernel:
             as_change=as_change,
         )
 
+    use_fused = config.fused
+    if use_fused is None:
+        use_fused = torch.cuda.is_available() and config.adapt and d <= 16 \
+            and os.environ.get("AMT_ARWMH_FUSED") == "1"
     step_n = collect_n = None
-    if config.fused:
+    if use_fused:
         if not config.adapt:
             raise ValueError("the fused ARWMH driver always adapts; "
                              "use fused=False with adapt=False")
@@ -202,7 +209,7 @@ def arwmh(target, config: ARWMHConfig = ARWMHConfig()) -> Kernel:
         collect_n=collect_n,
         collect_fields=(
             ("position", "potential_energy", "as_change")
-            if config.fused else ()
+            if use_fused else ()
         ),
         # the step reads nothing on the host: state.i and the adaptation
         # clock are device tensors

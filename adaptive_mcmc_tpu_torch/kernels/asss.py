@@ -26,12 +26,18 @@ Three drivers:
 * ``step_n`` / ``collect_n`` — the pipelined drivers: each chain runs its own
   draw → shrink → land → adapt machine, one potential evaluation per
   iteration, chains-last, frames written as each chain lands them
-  (``ops/cuda/asss_fused.run_machine``, rank-1 update through K1's
-  chains-last entry).  The slice level reuses the stored U(x) and the landing
-  potential is the accepting trip's U(x').
+  (``ops/cuda/asss_fused.Machine``, rank-1 update through K1's chains-last
+  entry).  The slice level reuses the stored U(x) and the landing potential
+  is the accepting trip's U(x').  The iterations run in blocks of
+  ``GRAPH_ITERS``; on the card each block replays from a CUDA graph
+  (``step_n`` keeps its graph for the next call of the same shape and
+  generator, ``collect_n`` captures its own), and ``eager=True`` runs the
+  same blocks in a Python loop with the same draws.
 * with ``ASSSConfig(fused=True)``, ``step_n`` / ``collect_n`` run the same
   machine in one launch of kernel K3 (``ops/cuda/asss_fused.py``), with a
-  fresh Philox seed per call drawn from the generator.
+  fresh Philox seed per call drawn from the generator.  ``fused=None``
+  resolves to K3 where a CUDA device is present and ``AMT_ASSS_FUSED=1``
+  (the JAX package's opt-in), otherwise to the pipelined machine.
 
 The state has no PRNG key: a ``torch.Generator`` comes with every call.
 """
@@ -39,6 +45,7 @@ The state has no PRNG key: a ``torch.Generator`` comes with every call.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -55,8 +62,8 @@ from adaptive_mcmc_tpu_torch.ops.cholesky import (
 )
 from adaptive_mcmc_tpu_torch.ops.cuda.asss_fused import (
     TWO_PI,
+    Machine,
     build_fused_asss,
-    run_machine,
 )
 
 Tensor = torch.Tensor
@@ -69,9 +76,10 @@ class ASSSConfig:
     max_shrinkage_iters: int = 50
     num_warmup: int = 0
     adapt: bool = True
-    # step_n / collect_n in one launch of kernel K3.  None resolves to off.
-    # Its random streams differ from the plain drivers': equal in
-    # distribution only.
+    # step_n / collect_n in one launch of kernel K3.  None resolves to on
+    # where a CUDA device is present and AMT_ASSS_FUSED=1, else off.  Its
+    # random streams differ from the plain drivers': equal in distribution
+    # only.
     fused: Optional[bool] = None
 
 
@@ -265,24 +273,31 @@ def asss(target, config: ASSSConfig = ASSSConfig()) -> Kernel:
         return (state.position, state.potential_energy, a.loc, a.scale,
                 state.i, state.as_change)
 
-    if config.fused:
+    use_fused = config.fused
+    if use_fused is None:
+        use_fused = torch.cuda.is_available() \
+            and os.environ.get("AMT_ASSS_FUSED") == "1"
+    if use_fused:
         fused_drive = build_fused_asss(target, config)
 
-        def drive(state_tuple, n_steps, n_frames, thinning, generator):
+        def drive(state_tuple, n_steps, n_frames, thinning, generator,
+                  eager):
             return fused_drive(state_tuple, n_steps, n_frames, thinning,
                                generator=generator)
     else:
-        def drive(state_tuple, n_steps, n_frames, thinning, generator):
-            return run_machine(target, config, state_tuple, n_steps,
-                               n_frames, thinning, generator,
-                               rank1=adaptive_scale_update_cl)[:2]
+        machine = Machine(target, config, adaptive_scale_update_cl)
+
+        def drive(state_tuple, n_steps, n_frames, thinning, generator,
+                  eager):
+            return machine.run(state_tuple, n_steps, n_frames, thinning,
+                               generator, eager=eager)[:2]
 
     def _run(state: ASSSState, n_steps: int, n_frames: int, thinning: int,
-             generator):
+             generator, eager: bool):
         if generator is None:
             raise ValueError("step_n / collect_n need a torch.Generator")
         (x, pe, loc, scale, i, as_change), frames = drive(
-            _as_tuple(state), n_steps, n_frames, thinning, generator)
+            _as_tuple(state), n_steps, n_frames, thinning, generator, eager)
         new = ASSSState(i=i, position=x, potential_energy=pe,
                         adapt_state=ASSSAdaptState(loc, scale),
                         as_change=as_change)
@@ -291,13 +306,13 @@ def asss(target, config: ASSSConfig = ASSSConfig()) -> Kernel:
     def step_n(state: ASSSState, n_steps: int,
                generator: Optional[torch.Generator] = None, *,
                eager: bool = False) -> ASSSState:
-        return _run(state, n_steps, 0, 1, generator)[0]
+        return _run(state, n_steps, 0, 1, generator, eager)[0]
 
     def collect_n(state: ASSSState, n_frames: int, thinning: int = 1,
                   generator: Optional[torch.Generator] = None, *,
                   eager: bool = False):
         return _run(state, n_frames * thinning, n_frames, thinning,
-                    generator)
+                    generator, eager)
 
     return Kernel(
         name="asss",

@@ -27,8 +27,8 @@ Two drivers:
   (JAX's ``_trip_draws``), so injected JAX uniforms replay a JAX run.
   Trips run in blocks of ``GRAPH_TRIPS``; ``done`` is read on the host
   between blocks.  On the card a block is captured into a CUDA graph and
-  replayed (:class:`_Machine`; ``step_n`` keeps its graph for the next
-  call, ``collect_n`` captures its own); ``eager=True`` runs the same
+  replayed (``infer.mcmc.BlockMachine``; ``step_n`` keeps its graph for
+  the next call, ``collect_n`` captures its own); ``eager=True`` runs the same
   blocks in Python, with the same draws.  Trips past a chain's last
   transition are no-ops for it and still draw.  ``collect_n`` writes each
   chain's every ``thinning``-th position as the chain completes it, so it
@@ -58,14 +58,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from adaptive_mcmc_tpu_torch.infer.mcmc import (
-    _HostRead,
-    _NoHostRead,
-    _capture,
-    _capture_error,
-    map_state,
-    state_tensors,
-)
+from adaptive_mcmc_tpu_torch.infer.mcmc import BlockMachine
 from adaptive_mcmc_tpu_torch.kernels.base import (
     Kernel,
     batch_positions,
@@ -270,89 +263,9 @@ class _LockstepDraws:
             else self.draws.u_leaf[:, depth, n]
 
 
-class _Machine:
-    """Blocks of ``GRAPH_TRIPS`` machine trips until every chain is done,
-    ``done`` read on the host between blocks.  Eagerly, a block is a Python
-    loop over trips.  On the card (``run`` given the generator) the machine
-    lives in static buffers: the first block runs eagerly under a mode that
-    refuses host reads (a ``potential_fn`` that reads one cannot be
-    captured), then one block is captured into a CUDA graph with the
-    generator registered, and replayed; it draws what the eager blocks
-    draw.  The call's constants (``n_steps``, the first iteration, the
-    thinning) are tensors in the buffers, never numbers baked into the
-    graph.  A ``step_n`` call keeps its graph for the next one with the
-    same shapes and generator.  A ``collect_n`` call keeps none: its frame
-    buffers are captured with it and handed back as they are, so none is
-    copied or outlives the call."""
-
-    def __init__(self, trip, label: str):
-        self.trip, self.label = trip, label
-        self.cached = None   # (key, generator, p buffers, ctx buffers, replay)
-
-    def _trips(self, p: dict, ctx: dict, draw, n: int) -> dict:
-        for _ in range(n):
-            p = self.trip(p, ctx, draw(p, ctx))
-        return p
-
-    @staticmethod
-    def _running(p: dict, ctx: dict) -> bool:
-        return bool((p["done"] < ctx["n_steps"]).any())
-
-    def run(self, p: dict, ctx: dict, draw, generator=None, saved=None):
-        """Advance ``p`` to its end; returns (p, ctx).  ``generator`` given:
-        from the CUDA graph (the tensors are on the card); a refused first
-        block puts the generator back to ``saved``, its state before the
-        call."""
-        global trips
-        block = GRAPH_TRIPS
-        if generator is None:
-            while self._running(p, ctx):
-                p = self._trips(p, ctx, draw, block)
-                trips += block
-            return p, ctx
-        keep = "fx" not in ctx
-        key = (block, tuple((k, tuple(t.shape), t.dtype, t.device)
-                            for k, t in sorted(ctx.items())),
-               tuple((k, tuple(t.shape), t.dtype)
-                     for k in sorted(p) for t in state_tensors(p[k])))
-        if keep and self.cached is not None and self.cached[0] == key \
-                and self.cached[1] is generator:
-            _, _, bp, bc, replay = self.cached
-            for k in p:
-                map_state(lambda dst, src: dst.copy_(src), bp[k], p[k])
-            for k in ctx:
-                bc[k].copy_(ctx[k])
-        else:
-            bp = {k: map_state(torch.clone, v) for k, v in p.items()}
-            bc = {k: v if k in ("fx", "fpe") else v.clone()
-                  for k, v in ctx.items()}
-            replay = None
-
-        def run_block() -> None:
-            q = self._trips(bp, bc, draw, block)
-            for k in bp:
-                map_state(lambda dst, src: dst if dst is src
-                          else dst.copy_(src), bp[k], q[k])
-
-        if self._running(bp, bc):
-            if replay is None:
-                try:
-                    with _NoHostRead():
-                        run_block()
-                except _HostRead as e:
-                    generator.set_state(saved)
-                    raise _capture_error(self.label, e) from e
-                trips += block
-                replay = _capture(run_block, generator, self.label)
-                if keep:
-                    self.cached = (key, generator, bp, bc, replay)
-            while self._running(bp, bc):
-                replay()
-                trips += block
-        if not keep:
-            return bp, bc
-        return ({k: map_state(torch.clone, v) for k, v in bp.items()},
-                {k: v.clone() for k, v in bc.items()})
+def _count(n: int) -> None:
+    global trips
+    trips += n
 
 
 def nuts(target, config: NUTSConfig = NUTSConfig()) -> Kernel:
@@ -889,9 +802,8 @@ def nuts(target, config: NUTSConfig = NUTSConfig()) -> Kernel:
 
     # the machine of calls that start in warmup, and of those that start
     # after it (no adaptation: some 60 fewer kernels per trip)
-    machines = {adapting: _Machine(functools.partial(_trip,
-                                                      adapting=adapting),
-                                   "nuts.step_n")
+    machines = {adapting: (BlockMachine("nuts.step_n", ("fx", "fpe")),
+                           functools.partial(_trip, adapting=adapting))
                 for adapting in (True, False)}
 
     def _drive(state: NUTSState, n_steps: int, n_frames: int, thinning: int,
@@ -937,9 +849,10 @@ def nuts(target, config: NUTSConfig = NUTSConfig()) -> Kernel:
                "i0": state.i.to(device=dev, dtype=torch.int32),
                "thin": torch.tensor(thinning, dtype=torch.int32, device=dev),
                "chains": torch.arange(C, device=dev), **frames}
-        machine = machines[do_adapt and int(state.i) < num_warmup]
-        p, ctx = machine.run(p, ctx, draw, generator if graph else None,
-                             saved)
+        machine, trip = machines[do_adapt and int(state.i) < num_warmup]
+        p, ctx = machine.run(p, ctx, lambda q, c: trip(q, c, draw(q, c)),
+                             GRAPH_TRIPS, _count,
+                             generator if graph else None, saved)
         out = {}
         if n_frames:
             out = {"position": ctx["fx"], "potential_energy": ctx["fpe"]}

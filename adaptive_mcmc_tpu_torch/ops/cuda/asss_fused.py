@@ -20,18 +20,20 @@ frames)``, ``new_state`` of the same layout with ``i0 + n_steps``, and
 "as_change": (C, F)}`` (empty when ``n_frames == 0``).  With
 ``return_iters`` it also returns each chain's iteration count (C,) int32.
 
-The state machine (:func:`run_machine`, one masked chains-last loop over
-iterations, for any target): iteration 0 opens each chain's first
-transition; every later iteration evaluates the potential once per chain
-at its current angle, lands chains whose slice test passes (or that used
-``max_shrinkage_iters`` trips: the bail-out stays put), adapts and opens the
-next transition for them, and shrinks the bracket of the others.  The slice
-level reuses the stored U(x), the landing potential is the accepting
-iteration's U(x'), and the adaptation clock is per chain (``i0 + done``).
-The JAX kernel also evaluates the potential in iteration 0 and discards the
-result; skipping that evaluation changes nothing, and iteration 0 still
-consumes draw row 0.  The pipelined ``step_n`` of ``kernels/asss.py`` runs
-the same machine with the rank-1 update through kernel K1.
+The state machine (:class:`Machine`, masked chains-last iterations in
+blocks of ``GRAPH_ITERS``, for any target): iteration 0 opens each chain's
+first transition; every later iteration evaluates the potential once per
+chain at its current angle, lands chains whose slice test passes (or that
+used ``max_shrinkage_iters`` trips: the bail-out stays put), adapts and
+opens the next transition for them, and shrinks the bracket of the others.
+The slice level reuses the stored U(x), the landing potential is the
+accepting iteration's U(x'), and the adaptation clock is per chain (``i0 +
+done``, ``i0`` a tensor).  The host reads ``done`` between blocks only, so
+on the card a block replays from a CUDA graph.  The JAX kernel also
+evaluates the potential in iteration 0 and discards the result; skipping
+that evaluation changes nothing, and iteration 0 still consumes draw row 0.
+The pipelined ``step_n`` of ``kernels/asss.py`` runs the same machine with
+the rank-1 update through kernel K1.
 
 Draws: injected ``unif3`` (R, 3, C), rows ``(u_shrink, u_level, u_theta)``,
 and ``n01`` (R, d+1, C) make a run deterministic.  Chain c reads row
@@ -64,10 +66,12 @@ the card, to hold it against ``potential_fn``.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import math
 
 import torch
 
+from adaptive_mcmc_tpu_torch.infer.mcmc import BlockMachine
 from adaptive_mcmc_tpu_torch.kernels.base import nan_to_inf
 from adaptive_mcmc_tpu_torch.models.base import sum_in_order
 from adaptive_mcmc_tpu_torch.ops.cuda import _build, check_device_potential
@@ -79,6 +83,12 @@ Tensor = torch.Tensor
 
 TWO_PI = 6.2831853071795864769
 launches = 0
+# machine iterations per block: one CUDA graph replay, one host read of
+# `done`
+GRAPH_ITERS = 16
+# machine iterations run in this process by the blocks (a replay adds its
+# length); a profile reads it
+iterations = 0
 
 
 def sigma_cl(S: Tensor, eps: float) -> Tensor:
@@ -148,54 +158,58 @@ def rank1_guarded_cl(S: Tensor, delta: Tensor, gamma: Tensor) -> Tensor:
     return torch.where(bad, S, new)
 
 
-def run_machine(target, config, state, n_steps: int, n_frames: int = 0,
-                thinning: int = 1, generator=None, unif3=None, n01=None,
-                rank1=rank1_guarded_cl):
-    """The ASSS state machine in plain PyTorch, one masked chains-last loop
-    over iterations: same arguments as ``drive`` (with the rank-1 update
-    ``rank1(S, delta, gamma)`` on chains-last tensors), returns
-    ``(new_state, frames, iters)``."""
-    st, frames, i0, inject = _prepare(state, n_steps, n_frames, thinning,
-                                      generator, unif3, n01)
-    x, pe, loc, S, as_chg = st["x"], st["pe"], st["loc"], st["S"], st["as"]
-    d, C = x.shape
-    dev = x.device
-    iters = torch.zeros(C, dtype=torch.int32, device=dev)
-    if n_steps == 0 or C == 0:
-        return _finish(st, frames, i0, n_steps, iters)
-    eps = float(config.eps)
-    rows = unif3.shape[0] if inject else 0
+def _count(n: int) -> None:
+    global iterations
+    iterations += n
 
-    def draws(s: int):
-        if inject:
-            r = min(s, rows - 1)
-            return unif3[r, 0], unif3[r, 1], unif3[r, 2], n01[r]
-        u = torch.rand((3, C), generator=generator, device=dev)
-        n = torch.randn((d + 1, C), generator=generator, device=dev)
-        return u[0], 1.0 - u[1], u[2], n
 
-    _, ul, ut, n = draws(0)
-    z, v, t_pe, theta, tmin, tmax = begin_cl(n, ul, ut, x, pe, loc,
-                                             sigma_cl(S, eps))
-    trips = torch.zeros(C, dtype=torch.int32, device=dev)
-    done = torch.zeros(C, dtype=torch.int32, device=dev)
-    iters += 1
-    ar = torch.arange(C, device=dev)
+class Machine:
+    """The ASSS state machine in plain PyTorch, chains-last: iteration 0
+    opens each chain's first transition, then blocks of ``GRAPH_ITERS``
+    masked iterations run until every chain has made ``n_steps``
+    transitions, driven by ``infer.mcmc.BlockMachine`` (``done`` read on
+    the host between blocks only; on the card with generator draws each
+    block replays from a CUDA graph that draws what the eager blocks draw,
+    so the two agree bit for bit; ``step_n`` keeps its graph, ``collect_n``
+    captures anew).  Iterations past a chain's end are no-ops for it (they
+    still draw).  The first iteration ``i0`` is a tensor in the buffers,
+    never a number baked into the graph.
 
-    def running(s: int) -> bool:
-        if inject and x.is_cuda and torch.cuda.is_current_stream_capturing():
-            return s < rows
-        return bool((done < n_steps).any())
+    ``rank1(S, delta, gamma)`` is the guarded rank-1 update on chains-last
+    tensors (K1's chains-last kernel on the card for the pipelined driver,
+    the plain version for K3's plain version)."""
 
-    s = 1
-    while running(s):
-        us, ul, ut, n = draws(s)
-        active = done < n_steps
+    def __init__(self, target, config, rank1=None):
+        self.target, self.config = target, config
+        self.rank1 = rank1 or rank1_guarded_cl
+        self.blocks = BlockMachine("asss.step_n", ("fx", "fpe", "fas"))
+
+    def _open(self, st: dict, draw) -> dict:
+        x, pe, loc, S = st["x"], st["pe"], st["loc"], st["S"]
+        d, C = x.shape
+        _, ul, ut, n = draw
+        z, v, t_pe, theta, tmin, tmax = begin_cl(
+            n, ul, ut, x, pe, loc, sigma_cl(S, float(self.config.eps)))
+        zero = torch.zeros(C, dtype=torch.int32, device=x.device)
+        return dict(x=x, pe=pe, loc=loc, S=S, ach=st["as"], z=z, v=v,
+                    t_pe=t_pe, theta=theta, tmin=tmin, tmax=tmax,
+                    trips=zero, done=zero, iters=zero + 1)
+
+    def _iteration(self, p: dict, ctx: dict, draw) -> dict:
+        """One masked iteration of every chain."""
+        config = self.config
+        us, ul, ut, n = draw
+        x, pe, loc, S, as_chg = p["x"], p["pe"], p["loc"], p["S"], p["ach"]
+        z, v, t_pe, theta = p["z"], p["v"], p["t_pe"], p["theta"]
+        tmin, tmax, trips, done = p["tmin"], p["tmax"], p["trips"], p["done"]
+        d = x.shape[0]
+        eps = float(config.eps)
+        active = done < ctx["n_steps"]
         sig = sigma_cl(S, eps)
         z_th = z * torch.cos(theta)[None] + v * torch.sin(theta)[None]
         pole = 1.0 - z_th[d]
         x_prop = inverse_cl(z_th, loc, sig)
-        u_prop = nan_to_inf(target.potential_fn(x_prop.t()))
+        u_prop = nan_to_inf(self.target.potential_fn(x_prop.t()))
         good = (u_prop + d * torch.log(pole) <= t_pe) & (pole >= eps)
         bail = trips >= config.max_shrinkage_iters
         land = active & (good | bail)
@@ -203,10 +217,11 @@ def run_machine(target, config, state, n_steps: int, n_frames: int = 0,
         x = torch.where(move[None], x_prop, x)
         pe = torch.where(move, u_prop, pe)
         if config.adapt:
-            gamma = gamma_cl(i0 + done, config.num_warmup, config.lr_decay)
+            gamma = gamma_cl(ctx["i0"] + done, config.num_warmup,
+                             config.lr_decay)
             delta = x - loc
             loc_land = loc + gamma * delta
-            S_land = rank1(S, delta, gamma)
+            S_land = self.rank1(S, delta, gamma)
             dl, dS = loc_land - loc, S_land - S
             chg = torch.sqrt(torch.sum(dl * dl, dim=0)) \
                 + torch.sqrt(torch.sum(dS * dS, dim=(0, 1)))
@@ -214,32 +229,89 @@ def run_machine(target, config, state, n_steps: int, n_frames: int = 0,
             S = torch.where(land[None, None], S_land, S)
             as_chg = torch.where(land, chg, as_chg)
         done = done + land.to(torch.int32)
-        if n_frames:
-            f = done // thinning - 1
-            rec = land & (done % thinning == 0) & (f < n_frames)
+        if "fx" in ctx:
+            fx, fpe, fas, ar = ctx["fx"], ctx["fpe"], ctx["fas"], ctx["ar"]
+            n_frames = fx.shape[0]
+            f = done // ctx["thin"] - 1
+            rec = land & (done % ctx["thin"] == 0) & (f < n_frames)
             f = f.clamp(0, n_frames - 1)
-            frames["x"][f, :, ar] = torch.where(rec[:, None], x.t(),
-                                                frames["x"][f, :, ar])
-            frames["pe"][f, ar] = torch.where(rec, pe, frames["pe"][f, ar])
-            frames["as"][f, ar] = torch.where(rec, as_chg,
-                                              frames["as"][f, ar])
+            fx[f, :, ar] = torch.where(rec[:, None], x.t(), fx[f, :, ar])
+            fpe[f, ar] = torch.where(rec, pe, fpe[f, ar])
+            fas[f, ar] = torch.where(rec, as_chg, fas[f, ar])
         nz, nv, nt, nth, ntn, ntx = begin_cl(n, ul, ut, x, pe, loc,
                                              sigma_cl(S, eps))
         shrink = active & ~land
         s_tmin = torch.where(shrink & (theta < 0.0), theta, tmin)
         s_tmax = torch.where(shrink & (theta >= 0.0), theta, tmax)
         s_theta = s_tmin + us * (s_tmax - s_tmin)
-        z = torch.where(land[None], nz, z)
-        v = torch.where(land[None], nv, v)
-        t_pe = torch.where(land, nt, t_pe)
-        theta = torch.where(land, nth, torch.where(shrink, s_theta, theta))
-        tmin = torch.where(land, ntn, s_tmin)
-        tmax = torch.where(land, ntx, s_tmax)
-        trips = torch.where(land, 0, trips + shrink.to(torch.int32))
-        iters += active.to(torch.int32)
-        s += 1
-    st.update(x=x, pe=pe, loc=loc, S=S, **{"as": as_chg})
-    return _finish(st, frames, i0, n_steps, iters)
+        return dict(
+            x=x, pe=pe, loc=loc, S=S, ach=as_chg,
+            z=torch.where(land[None], nz, z),
+            v=torch.where(land[None], nv, v),
+            t_pe=torch.where(land, nt, t_pe),
+            theta=torch.where(land, nth,
+                              torch.where(shrink, s_theta, theta)),
+            tmin=torch.where(land, ntn, s_tmin),
+            tmax=torch.where(land, ntx, s_tmax),
+            trips=torch.where(land, 0, trips + shrink.to(torch.int32)),
+            done=done, iters=p["iters"] + active.to(torch.int32))
+
+    def run(self, state, n_steps: int, n_frames: int = 0, thinning: int = 1,
+            generator=None, unif3=None, n01=None, eager: bool = False):
+        """Same arguments as ``drive``; returns ``(new_state, frames,
+        iters)``.  ``eager=True`` runs the blocks in a Python loop on the
+        card too; injected draws always do."""
+        st, frames, i0, inject = _prepare(state, n_steps, n_frames, thinning,
+                                          generator, unif3, n01)
+        x = st["x"]
+        d, C = x.shape
+        dev = x.device
+        if n_steps == 0 or C == 0:
+            return _finish(st, frames, i0, n_steps,
+                           torch.zeros(C, dtype=torch.int32, device=dev))
+        rows = unif3.shape[0] if inject else 0
+        row = itertools.count()
+
+        def draw():
+            if inject:
+                r = min(next(row), rows - 1)
+                return unif3[r, 0], unif3[r, 1], unif3[r, 2], n01[r]
+            u = torch.rand((3, C), generator=generator, device=dev)
+            n = torch.randn((d + 1, C), generator=generator, device=dev)
+            return u[0], 1.0 - u[1], u[2], n
+
+        capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+        graph = x.is_cuda and not (eager or inject or capturing)
+        saved = generator.get_state() if graph else None
+        p = self._open(st, draw())
+        ctx = {"n_steps": torch.full((), n_steps, dtype=torch.int32,
+                                     device=dev),
+               "i0": i0.to(device=dev, dtype=torch.int32)
+               if isinstance(i0, Tensor) else
+               torch.full((), i0, dtype=torch.int32, device=dev),
+               "thin": torch.full((), thinning, dtype=torch.int32,
+                                  device=dev)}
+        if frames:
+            ctx.update(fx=frames["x"], fpe=frames["pe"], fas=frames["as"],
+                       ar=torch.arange(C, device=dev))
+        if capturing:
+            # under someone else's capture nothing can be read: with
+            # injected draws run exactly one iteration per row
+            if not inject:
+                raise RuntimeError("the ASSS machine reads its progress on "
+                                   "the host: capture it only with "
+                                   "injected draws")
+            for _ in range(rows - 1):
+                p = self._iteration(p, ctx, draw())
+        else:
+            p, ctx = self.blocks.run(
+                p, ctx, lambda q, c: self._iteration(q, c, draw()),
+                GRAPH_ITERS, _count, generator if graph else None, saved)
+        st.update(x=p["x"], pe=p["pe"], loc=p["loc"], S=p["S"],
+                  **{"as": p["ach"]})
+        if frames:
+            frames = {"x": ctx["fx"], "pe": ctx["fpe"], "as": ctx["fas"]}
+        return _finish(st, frames, i0, n_steps, p["iters"])
 
 
 def _prepare(state, n_steps, n_frames, thinning, generator, unif3, n01):
@@ -247,7 +319,6 @@ def _prepare(state, n_steps, n_frames, thinning, generator, unif3, n01):
     kernel updates them in place; the caller's state stays as it was) and
     zeroed frame buffers."""
     x, pe, loc, S, i0, as_in = state
-    i0 = int(i0)
     C, d = x.shape
     dev = x.device
     if thinning < 1 or n_frames < 0 or n_frames * thinning > n_steps:
@@ -283,15 +354,16 @@ def _prepare(state, n_steps, n_frames, thinning, generator, unif3, n01):
     return st, frames, i0, inject
 
 
-def _finish(st, frames, i0: int, n_steps: int, iters: Tensor):
+def _finish(st, frames, i0, n_steps: int, iters: Tensor):
     """The chains-last results in the drive's return layout, with the
-    iteration counts."""
+    iteration counts; ``i0`` is an int or a 0-d tensor."""
+    dev = st["x"].device
+    i = (i0.to(device=dev, dtype=torch.int32) + n_steps) \
+        if isinstance(i0, Tensor) else \
+        torch.full((), i0 + n_steps, dtype=torch.int32, device=dev)
     new_state = (
         st["x"].t().contiguous(), st["pe"], st["loc"].t().contiguous(),
-        st["S"].permute(2, 0, 1).contiguous(),
-        torch.full((), i0 + n_steps, dtype=torch.int32,
-                   device=st["x"].device),
-        st["as"],
+        st["S"].permute(2, 0, 1).contiguous(), i, st["as"],
     )
     out = {}
     if frames:
@@ -329,7 +401,7 @@ def kernel_args(config, st: dict, iters: Tensor, kernel_data: Tensor,
 
 def _launch(target, config, state, n_steps: int, n_frames: int,
             thinning: int, generator, unif3, n01):
-    """Run K3 on CUDA tensors; same return as :func:`run_machine`."""
+    """Run K3 on CUDA tensors; same return as :meth:`Machine.run`."""
     global launches
     tag = check_device_potential(target, "fused ASSS")
     st, frames, i0, inject = _prepare(state, n_steps, n_frames, thinning,
@@ -339,6 +411,7 @@ def _launch(target, config, state, n_steps: int, n_frames: int,
     iters = torch.zeros(C, dtype=torch.int32, device=dev)
     if n_steps == 0 or C == 0:
         return _finish(st, frames, i0, n_steps, iters)
+    i0 = int(i0)
     seed = 0
     if inject:
         unif3, n01 = unif3.contiguous(), n01.contiguous()
@@ -388,10 +461,10 @@ def fused_asss_reference(target, config, state, n_steps: int,
                          generator=None, unif3=None, n01=None,
                          return_iters: bool = False):
     """Plain PyTorch version of K3 on any device and for any target: the
-    state machine of :func:`run_machine`, same arguments and return layout
-    as ``drive``."""
-    out = run_machine(target, config, state, n_steps, n_frames, thinning,
-                      generator, unif3, n01)
+    state machine of :class:`Machine`, run eagerly, same arguments and
+    return layout as ``drive``."""
+    out = Machine(target, config).run(state, n_steps, n_frames, thinning,
+                                      generator, unif3, n01, eager=True)
     return out if return_iters else out[:2]
 
 

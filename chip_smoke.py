@@ -45,7 +45,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    asss(..., ASSSConfig(fused=True)) (through K3), and the µs per step of a
    long step_n; then the lockstep step and the pipelined step_n (both
    through K1) for 250 + 750 steps from fresh positions under the adapted
-   scale of the K3 run;
+   scale of the K3 run; then the pipelined machine from its CUDA graph
+   (blocks of GRAPH_ITERS iterations, step_n keeping its graph) against
+   the same blocks run eagerly, bit for bit (two step_n calls, then
+   collect_n with frames; final state, frames, the generator's next
+   draws) on eight schools at 4096 chains and diamonds at 1024;
 7. the slice: MCMC(asss(diamonds(), ASSSConfig(fused=True))) and
    MCMC(arwmh(diamonds(), ARWMHConfig(fused=True))) at 1024 chains through
    K3 and K2, against the PosteriorDB gold draws; kidiq through K3 and K2
@@ -62,7 +66,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (B = 8, n = m = 10000, cold, then warm-started from its own prices:
    rounds per ε level, the dual certificate (D − P)/n ≤ ε_final in
    float64, a permutation each), ms per auction round at block 1024, 128
-   and 16 from the CUDA graph and eagerly; at n = 2000 the auction from the
+   and 16 from the CUDA graph and eagerly; at n = 1000 the auction from the
    graph against eager=True bit for bit and within ε_final of the port's
    native Hungarian, which equals SciPy's cost, and each metric on the card
    against the CPU (rtol 1e-4); the Lipschitz-NN τ of the AR(1) kernel at
@@ -78,7 +82,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    MCMC(sa(eight_schools_noncentered()), num_warmup=2500,
    num_samples=25000, thinning=10, n_chains=1024) against the quadrature
    truths of mu and log tau, K1 launched 3 x 27500 times; NUTS at 1024
-   chains, its machine from the CUDA graph: step_n of 100 then collect_n of
+   chains, its machine from the CUDA graph: step_n of 50 then collect_n of
    25 frames at thinning 2 against the eager blocks bit for bit (final
    state, frames, the generator's next draws, trips), the trial of trips
    per graph replay (GRAPH_TRIPS set to 8, 16, 32, 64 in turn),
@@ -87,16 +91,31 @@ Phases, in order; any failure ends the run with a non-zero exit:
    mu; the tau median of every eight-schools run beside the quadrature's)
    and MCMC(nuts(kidiq()), 500 + 500) through the kidiq gate, with
    acceptance, num_steps, divergences, trips, ms per trip, chain-iters/s,
-   and no kernel of csrc/ launched; the checkpointed
-   driver (ARWMH on std_normal(3), 64 chains) interrupted after its first
+   and no kernel of csrc/ launched; the experiment harness through the
+   CLI's functions (adaptive_mcmc_tpu_torch.experiments): run_w_eval of
+   the ten W_EVAL_BUDGETS cells at 100 seeds, each budget cut by its
+   HARNESS_SCALES entry (the CLI's --scale), NUTS at fan_out=16, each cell
+   through its gate (eight schools: mean mu and mean log tau against the
+   quadrature; kidiq: every mean within 0.1 posterior sd of the
+   quadrature; diamonds NUTS: diamonds_gate; diamonds ARWMH and ASSS, too
+   short to converge here: the npz's draws and potential energies equal
+   bit for bit those of run_mcmc_sharded driven directly with the same
+   kernel, seed and budget) with its wall, chain-iters/s,
+   driver stamp and K1 launches, run_lr_decay of centered eight schools
+   ASSS (n_pow 4, three decays), and evaluate_run on the three diamonds
+   cells against the gold draws (exact W on 8 seeds in one batch, the
+   Hungarian check on seeds 0 and 1, no Sinkhorn column, as the sweep
+   grades; seconds per metric column); the
+   checkpointed driver (ARWMH on std_normal(3), 64 chains) interrupted after its first
    chunk and resumed against run_mcmc bit for bit, and
    collect_states_logscale(n_pow=4)'s grid; the port's bench
    (adaptive_mcmc_tpu_torch.bench.main(): five numeric cells);
    one step of entry(); then the host time per step, kernels per step
    (the six largest by device time) and device idle share of the ARWMH
    lockstep step and the SA step, per trip of the NUTS machine, eager
-   and from the graph, and per auction round from the graph at each block
-   width
+   and from the graph, per auction round from the graph at each block
+   width, and per step (per iteration) of the ASSS machine from its graph
+   beside the eager machine's row of PERF.md §5
    (torch.profiler; last, because the profiler once on slows every later
    launch of the process);
 9. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
@@ -113,6 +132,7 @@ import importlib
 import json
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -160,7 +180,7 @@ SA_PROFILE_STEPS = {"eager": 50, "graph": 300}
 # tests/test_nuts.py's bands, kidiq through kidiq_gate; a trial of the
 # machine trips per CUDA graph replay; the profiled windows (transitions)
 NUTS_CHAINS = 1024
-NUTS_CHECK_WARMUP, NUTS_CHECK_STEPS = 100, 100
+NUTS_CHECK_WARMUP, NUTS_CHECK_STEPS = 100, 50                   # time
 NUTS_CHECK_FRAMES, NUTS_CHECK_THINNING = 25, 2                  # time
 NUTS_WARMUP, NUTS_SAMPLES = 700, 500
 NUTS_KIDIQ_WARMUP, NUTS_KIDIQ_SAMPLES = 500, 500
@@ -177,9 +197,10 @@ DRIVER_CHAINS, DRIVER_WARMUP, DRIVER_SAMPLES, DRIVER_CHUNK = 64, 100, 400, 200
 # from each phase-7 diamonds run, against the gold draws); the checks
 # against the Hungarian, SciPy, the CPU and eager at DIAG_CHECK_N (Sinkhorn
 # and the exact W against the CPU on DIAG_SINKHORN_CPU sets: the CPU's
-# Sinkhorn at n = 2000 takes seconds per set); the timed auction rounds
+# Sinkhorn at n = 1000 takes about a second per set); the timed auction
+# rounds
 DIAG_N, DIAG_SETS_PER_RUN, DIAG_FRAMES = 10000, 4, 40
-DIAG_CHECK_N, DIAG_SINKHORN_CPU, DIAG_RTOL = 2000, 2, 1e-4
+DIAG_CHECK_N, DIAG_SINKHORN_CPU, DIAG_RTOL = 1000, 2, 1e-4          # time
 DIAG_DIRECTIONS, DIAG_TIMED_ROUNDS, DIAG_PROFILED_ROUNDS = 1000, 256, 64
 # the AR(1) kernel (tests/test_contraction.py's band) at the estimator's
 # defaults; frozen ARWMH and ASSS at figures.py's sizes; the decay curves;
@@ -189,6 +210,52 @@ FIG_POINTS, FIG_SAMPLES, FIG_BATCHES, FIG_STEPS = 100, 1000, 8, 100
 DIAG_TIMED_ROLLOUTS = 20
 DECAY_NS, DECAY_SAMPLES = (1, 4, 16), 10_000
 INVARIANCE_SAMPLES = 1_000_000
+# the ASSS machine from its CUDA graph against its eager blocks: (target,
+# chains, steps per step_n call, frames, thinning); the profiled windows
+ASSS_GRAPH_CHECKS = (("eight_schools_noncentered", N_CHAINS, 25, 10, 5),
+                     ("diamonds", SLICE_CHAINS, 10, 5, 2))
+# (torch.profiler's processing grows with its events: 200 diamonds steps
+# are some 10^6 kernels and took over a minute; 20 give the same figures
+# per iteration)
+ASSS_PROFILE_WARMUP, ASSS_PROFILE_STEPS = 100, 20                # time
+# the eager machine's row of PERF.md §5 (eight schools, 4096 chains)
+ASSS_EAGER_ROW = ("9.2725 ms per step, 2.41 iterations per step, 231.4 "
+                  "kernels and 338.98 µs busy per iteration, idle 0.9119")
+# the experiment harness: every w_eval cell at 100 seeds on the posterior's
+# own d and data, its iteration budget cut by the CLI's --scale (time);
+# NUTS fanned out 16 ways as scripts/run_full_sweeps.py does; one lr_decay
+# cell; evaluate_run on the diamonds cells (exact W on 8 seeds in one
+# batch of 8, the Hungarian check on seeds 0 and 1; no Sinkhorn column,
+# 15 s a cell, which the diagnostics phase times at this shape)
+HARNESS_SEEDS = 100
+HARNESS_SCALES = {                                              # time
+    ("eight_schools", "arwmh"): 0.1,
+    ("eight_schools", "asss"): 0.2,
+    ("eight_schools", "nuts"): 0.016,
+    ("eight_schools", "sa"): 0.1,
+    ("kidiq", "arwmh"): 0.2,
+    ("kidiq", "asss"): 0.2,
+    ("kidiq", "nuts"): 0.128,
+    ("diamonds", "arwmh"): 0.001,
+    ("diamonds", "asss"): 0.0005,
+    ("diamonds", "nuts"): 0.16,
+}
+# diamonds' gold bands need some 10^6 warmup steps of ARWMH and 2 x 10^5 of
+# ASSS (PERF.md §4), the w_eval budgets' 10^6 and 5 x 10^5 at --scale 1
+# (11 and 5.5 million steps in all, hours through the lockstep graph and
+# the machine): no scale of these two cells both fits the script and
+# converges.  Their gate is the harness itself: the npz's draws and
+# potential energies against run_mcmc_sharded driven directly (the kernel
+# built by hand, a generator of the config's seed, the same budget), bit
+# for bit; the full sweep grades them against the gold
+# (mcmc_runs/torch_h100/results_state.json)
+HARNESS_DIRECT = (("diamonds", "arwmh"), ("diamonds", "asss"))
+HARNESS_LR_DECAY = ("eight_schools_centered", "asss", 4)
+HARNESS_EVAL_SEEDS, HARNESS_EVAL_BATCH = 8, 8
+# eight schools: tests/test_sa.py's bands on mean mu and mean log tau;
+# kidiq: every coordinate's mean within 0.1 posterior sd of the quadrature
+HARNESS_MU_TOL, HARNESS_LOG_TAU_TOL, HARNESS_KIDIQ_ERR = 0.2, 0.15, 0.1
+HARNESS_DIR = Path(__file__).resolve().parent / "mcmc_runs" / "chip_smoke"
 # the TPU kernels the instantiations replace
 K2_REPLACES = "adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426"
 K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
@@ -1563,6 +1630,266 @@ def run_diagnostics(amt, sets, counters, card: str) -> dict:
     return timing
 
 
+
+# ---------------------------------------------------------------------------
+# The ASSS machine from its CUDA graph, and the experiment harness.
+# ---------------------------------------------------------------------------
+
+def asss_runs(amt, kernel, init, n_steps: int, n_frames: int,
+              thinning: int) -> list:
+    """Two step_n calls (the second replays the graph the first kept),
+    then collect_n with frames, eagerly and from the CUDA graph, each from
+    a generator of the same seed: per mode (state and frame tensors, the
+    generator's next draws, seconds)."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors
+    out = []
+    for eager in (True, False):
+        g = torch.Generator("cuda").manual_seed(9)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = kernel.step_n(init, n_steps, g, eager=eager)
+        s = kernel.step_n(s, n_steps, g, eager=eager)
+        s, frames = kernel.collect_n(s, n_frames, thinning, g, eager=eager)
+        torch.cuda.synchronize()
+        out.append(([*state_tensors(s), *frames.values(),
+                     torch.rand(4, generator=g, device="cuda")],
+                    time.perf_counter() - t0))
+    return out
+
+
+def check_asss_graph(amt, k1, card: str) -> dict:
+    """The pipelined ASSS machine from its CUDA graph against the eager
+    blocks bit for bit, per ASSS_GRAPH_CHECKS target; returns each
+    target's state after warmup, for the profile."""
+    m = importlib.import_module("adaptive_mcmc_tpu_torch.ops.cuda.asss_fused")
+    states = {}
+    for name, C, n, F, thin in ASSS_GRAPH_CHECKS:
+        t = getattr(amt, name)()
+        k = amt.asss(t, amt.ASSSConfig(num_warmup=ASSS_PROFILE_WARMUP))
+        init = k.init(torch.Generator("cuda").manual_seed(5), n_chains=C)
+        k1.launches = 0
+        (e, e_s), (gr, g_s) = asss_runs(amt, k, init, n, F, thin)
+        require(k1.launches > 0, f"ASSS {name}: K1 never launched")
+        require(len(e) == len(gr) and all(torch.equal(a, b)
+                                          for a, b in zip(e, gr)),
+                f"ASSS {name}: the graph run differs from the eager blocks")
+        require(int(gr[0]) == 2 * n + F * thin, f"ASSS {name} step counter")
+        steps = 2 * n + F * thin
+        print(f"ASSS machine graph run equals the eager blocks bit for bit: "
+              f"{name} at {C} chains, two step_n of {n} then collect_n of "
+              f"{F} frames at thinning {thin} (final state, frames, the "
+              f"generator's next draws); {e_s * 1e3 / steps:.4f} ms per "
+              f"step eagerly, {g_s * 1e3 / steps:.4f} from the graph "
+              f"(capture included; block {m.GRAPH_ITERS} iterations) on "
+              f"{card}")
+        states[name] = k.step_n(init, ASSS_PROFILE_WARMUP,
+                                torch.Generator("cuda").manual_seed(6))
+    return states
+
+
+def profile_asss_machine(amt, name: str, state, card: str) -> dict:
+    """Host time per step of the machine's step_n from its CUDA graph (host
+    clock around a synchronised window), then kernels and device busy per
+    iteration under torch.profiler over a second window; idle share as in
+    profile_lockstep, beside the eager machine's row."""
+    from torch.profiler import ProfilerActivity, profile
+    m = importlib.import_module("adaptive_mcmc_tpu_torch.ops.cuda.asss_fused")
+    k = amt.asss(getattr(amt, name)(),
+                 amt.ASSSConfig(num_warmup=ASSS_PROFILE_WARMUP))
+    g = torch.Generator("cuda").manual_seed(8)
+    n = ASSS_PROFILE_STEPS
+    state = k.step_n(state, n, g)         # captures; the windows replay
+    windows = []
+    for profiled in (False, True):
+        ctx = profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if profiled \
+            else contextlib.nullcontext()
+        with ctx as prof:
+            torch.cuda.synchronize()
+            i0, t0 = m.iterations, time.perf_counter()
+            state = k.step_n(state, n, g)
+            torch.cuda.synchronize()
+            windows.append(((time.perf_counter() - t0) * 1e3 / n,
+                            (m.iterations - i0) / n))
+    iters = windows[1][1]
+    n_kernels, busy_us = device_activity(prof, f"ASSS machine {name}",
+                                         n, "step")
+    out = {"host_ms": windows[0][0], "traced_ms": windows[1][0],
+           "iters": iters, "kernels": n_kernels / n / iters,
+           "busy_us": busy_us / n / iters,
+           "idle": 1.0 - busy_us / n / (windows[1][0] * 1e3),
+           "idle_unprofiled": 1.0 - busy_us / n / (windows[0][0] * 1e3)}
+    C = state.position.shape[0]
+    print(f"ASSS pipelined (K1) from the CUDA graph, {name}, {n} steps at "
+          f"{C} chains: host time per step {out['host_ms']:.4f} ms "
+          f"({out['traced_ms']:.4f} under the profiler), {iters:.2f} "
+          f"iterations per step, kernels per iteration "
+          f"{out['kernels']:.1f}, device busy per iteration "
+          f"{out['busy_us']:.2f} µs, device idle share {out['idle']:.4f} in "
+          f"the profiled window (estimate without the profiler "
+          f"{out['idle_unprofiled']:.4f}) on {card}; the eager machine's row "
+          f"(eight schools, 4096 chains): {ASSS_EAGER_ROW}")
+    return out
+
+
+def direct_drive(amt, cfg) -> dict:
+    """A w_eval cell's draws without the harness: its kernel built by hand,
+    run_mcmc_sharded from a generator of the config's seed at its budget
+    (fan-out 1, no chunk cap), pooled by hand into the npz's (seeds, draws,
+    ...) layout."""
+    from adaptive_mcmc_tpu_torch.parallel import run_mcmc_sharded
+    target = getattr(amt, cfg.target)()
+    if cfg.kernel == "arwmh":
+        kernel = amt.arwmh(target, amt.ARWMHConfig(
+            lr_decay=cfg.lr_decay, num_warmup=cfg.num_warmup, adapt=True))
+    else:
+        kernel = amt.asss(target, amt.ASSSConfig(
+            lr_decay=cfg.lr_decay, num_warmup=cfg.num_warmup))
+    require(cfg.fan_out == 1 and cfg.chains_per_seed == 1,
+            f"{cfg.run_name()}: one chain per seed")
+    samples, extras, _ = run_mcmc_sharded(
+        kernel, torch.Generator("cuda").manual_seed(cfg.seed0),
+        cfg.num_warmup, cfg.num_samples, thinning=cfg.thinning,
+        n_chains=cfg.n_seeds, extra_fields=("potential_energy", "as_change"))
+    return {"samples": samples.transpose(0, 1).cpu().numpy(),
+            "potential_energy":
+                extras["potential_energy"].transpose(0, 1).cpu().numpy()}
+
+
+def harness_gate(amt, cfg, npz: dict, label: str) -> str:
+    """The cell's pooled draws against the posterior's truth: eight schools
+    and kidiq against the port's quadrature (experiments/quadrature.py),
+    diamonds NUTS against the gold draws (diamonds_gate); the HARNESS_DIRECT
+    cells against direct_drive, bit for bit."""
+    from adaptive_mcmc_tpu_torch.experiments import quadrature
+    target, kernel = cfg.target, cfg.kernel
+    samples = npz["samples"]
+    flat = samples.reshape(-1, samples.shape[-1]).astype(np.float64)
+    if (target, kernel) in HARNESS_DIRECT:
+        t0 = time.perf_counter()
+        want = direct_drive(amt, cfg)
+        for k, v in want.items():
+            require(npz[k].shape == v.shape and np.array_equal(npz[k], v),
+                    f"{label}: {k} differs from run_mcmc_sharded's")
+        print(f"{label}: samples {samples.shape} and potential_energy equal "
+              f"bit for bit those of run_mcmc_sharded driven directly (same "
+              f"kernel, seed {cfg.seed0} and budget; "
+              f"{time.perf_counter() - t0:.3f} s)")
+        return "run_mcmc_sharded, bit for bit"
+    if target == "diamonds":
+        diamonds_gate(amt, torch.from_numpy(samples.swapaxes(0, 1)), label)
+        return "gold"
+    if target == "eight_schools":
+        tr = quadrature.eight_schools_truth()
+        mu, lt = flat[:, 0].mean(), flat[:, 1].mean()
+        print(f"{label}: mean mu {mu:.4f} (quadrature {tr['mean_mu']:.4f}), "
+              f"mean log tau {lt:.4f} ({tr['mean_log_tau']:.4f})")
+        require(abs(mu - tr["mean_mu"]) < HARNESS_MU_TOL,
+                f"{label}: mean mu {mu}")
+        require(abs(lt - tr["mean_log_tau"]) < HARNESS_LOG_TAU_TOL,
+                f"{label}: mean log tau {lt}")
+        return "quadrature"
+    tr = quadrature.kidiq_truth()
+    mean = np.concatenate([tr["mean_beta"], [tr["mean_log_sigma"]]])
+    sd = np.concatenate([tr["sd_beta"], [tr["sd_log_sigma"]]])
+    err = np.abs(flat.mean(0) - mean) / sd
+    print(f"{label}: |mean - quadrature| / posterior sd "
+          f"{np.round(err, 4).tolist()} ([beta(3), log sigma])")
+    require(err.max() <= HARNESS_KIDIQ_ERR, f"{label}: mean error {err}")
+    return "quadrature"
+
+
+def run_harness(amt, k1, counters, card: str) -> dict:
+    """Every w_eval cell through run_w_eval at HARNESS_SEEDS seeds, its
+    budget cut by HARNESS_SCALES (the CLI's --scale), NUTS fanned out 16
+    ways; each cell's gate; run_lr_decay of one ASSS cell; evaluate_run on
+    the diamonds cells against the gold draws with the Hungarian check.
+    Returns K1's launches: (chains first, chains last)."""
+    import shutil
+    from adaptive_mcmc_tpu_torch.experiments import cli, configs, evaluate
+    from adaptive_mcmc_tpu_torch.experiments import runner, summaries
+    out_dir = HARNESS_DIR
+    shutil.rmtree(out_dir, ignore_errors=True)
+    first = last = 0
+    npzs = {}
+    for (target, kernel), scale in HARNESS_SCALES.items():
+        budget = cli._scaled_budget(target, kernel, scale)
+        fan = 16 if kernel == "nuts" else 1
+        require((budget["num_samples"] // budget["thinning"]) % fan == 0,
+                f"{target}/{kernel}: draws do not divide by {fan}")
+        cfg = configs.RunConfig(target=target, kernel=kernel,
+                                n_seeds=HARNESS_SEEDS, fan_out=fan,
+                                out_dir=str(out_dir), **budget)
+        reset_launches(*counters)
+        npz = runner.run_w_eval(cfg, verbose=False)
+        n_k1 = k1.launches
+        if kernel == "asss":
+            last += n_k1
+        elif kernel != "nuts":
+            first += n_k1
+        require(n_k1 > 0 if kernel != "nuts" else n_k1 == 0,
+                f"{target}/{kernel}: K1 launched {n_k1} times")
+        require(all(m.launches == 0 for m in counters if m is not k1),
+                f"{target}/{kernel} launched K2 or K3")
+        with np.load(npz, allow_pickle=False) as d:
+            arrays = {k: d[k] for k in ("samples", "potential_energy")}
+            meta = json.loads(str(d["meta"]))
+        samples = arrays["samples"]
+        draws = budget["num_samples"] // budget["thinning"]
+        d_t = runner.TARGETS[target]().dim
+        require(samples.shape == (HARNESS_SEEDS, draws, d_t)
+                and bool(np.isfinite(samples).all()),
+                f"{target}/{kernel}: samples {samples.shape}")
+        label = f"harness {target}/{kernel}"
+        gate = harness_gate(amt, cfg, arrays, label)
+        print(f"{label}: scale {scale} ({budget['num_warmup']} + "
+              f"{budget['num_samples']} steps, thinning "
+              f"{budget['thinning']}, fan-out {fan}), {HARNESS_SEEDS} "
+              f"seeds: wall {meta['wall_seconds']:.3f} s, "
+              f"{meta['chain_iters_per_sec']:.1f} chain-iters/s, driver "
+              f"{meta['driver']}, K1 launches {n_k1}, gate: {gate} on "
+              f"{card}")
+        npzs[(target, kernel)] = npz
+    target, kernel, n_pow = HARNESS_LR_DECAY
+    reset_launches(*counters)
+    t0 = time.perf_counter()
+    paths = runner.run_lr_decay(target, kernel, n_pow=n_pow,
+                                n_seeds=HARNESS_SEEDS, out_dir=str(out_dir),
+                                verbose=False)
+    last += k1.launches
+    require(k1.launches > 0, "lr_decay never launched K1")
+    grid = amt.ns_logscale(n_pow).numpy()
+    for p in paths:
+        meta, cols = summaries.read_lr_decay_summary(
+            summaries.summary_path_for(p))
+        require(np.array_equal(cols["i"], grid)
+                and all(np.isfinite(v).all() for v in cols.values()),
+                f"lr_decay summary {p.name}")
+    print(f"harness lr_decay {target}/{kernel}, n_pow {n_pow}, "
+          f"{len(paths)} decays x {HARNESS_SEEDS} seeds: "
+          f"{time.perf_counter() - t0:.3f} s, {len(grid)} grid points per "
+          f"decay, summaries finite on {card}")
+    gold = gold_draws(amt)
+    for kernel in ("arwmh", "asss", "nuts"):
+        timings = {}
+        table = evaluate.evaluate_run(
+            npzs[("diamonds", kernel)], gold,
+            exact_wasserstein_seeds=HARNESS_EVAL_SEEDS,
+            exact_w_batch=HARNESS_EVAL_BATCH, sinkhorn=False, timings=timings)
+        w = table["wasserstein"][:HARNESS_EVAL_SEEDS]
+        require(bool(np.isfinite(w).all()), f"diamonds/{kernel}: W {w}")
+        cols = ", ".join(
+            f"{c} {np.nanmean(table[c]):.6f} ± {np.nanstd(table[c], ddof=1):.6f}"
+            for c in ("rmse_means", "wasserstein", "mmd", "ess_median"))
+        secs = ", ".join(f"{c} {s:.3f} s" for c, s in timings.items())
+        print(f"harness evaluate diamonds/{kernel} against the gold draws "
+              f"(exact W on {HARNESS_EVAL_SEEDS} seeds, batch "
+              f"{HARNESS_EVAL_BATCH}, the Hungarian check held): {cols}; "
+              f"seconds per column: {secs} on {card}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    return first, last
+
+
 def layouts(amt, build, chains: dict) -> dict:
     """Lanes per chain of both K1 kernels at the main path's (4096, 10) and
     of every K2 and K3 instantiation, printed with the warps its check's
@@ -1702,6 +2029,10 @@ def main() -> int:
 
     elapsed("the ASSS paths")
 
+    # the pipelined ASSS machine from its CUDA graph against the eager blocks
+    asss_states = check_asss_graph(amt, k1, card)
+    elapsed("the ASSS machine's graph")
+
     # 7. the slice: diamonds through K3 and K2 with the gold check; kidiq
     # through K3 and K2 with its OLS check; centered eight schools through
     # K3 and K2
@@ -1773,6 +2104,10 @@ def main() -> int:
           f"chain-iters/s on {card}: eight schools {nuts_es_rate:.1f}, kidiq "
           f"{nuts_kidiq_rate:.1f}")
     elapsed("the NUTS path")
+
+    # the experiment harness: the ten w_eval cells, lr_decay, evaluate_run
+    k1_harness = run_harness(amt, k1, counters, card)
+    elapsed("the experiment harness")
     check_drivers(amt)
     check_bench()
     check_entry()
@@ -1791,6 +2126,8 @@ def main() -> int:
     prof = {eager: profile_nuts(amt, tn, nuts_state, eager, card)
             for eager in (True, False)}
     profile_auction(diag, card)
+    for name, state in asss_states.items():
+        profile_asss_machine(amt, name, state, card)
     print(f"NUTS trip, eager -> graph: host time "
           f"{prof[True]['host_ms']:.4f} -> {prof[False]['host_ms']:.4f} ms, "
           f"kernels {prof[True]['kernels']:.1f} -> "
@@ -1799,13 +2136,15 @@ def main() -> int:
           f"under the profiler")
 
     # 9. results
-    # K1's chains-first kernel ran the ARWMH lockstep path and the SA path,
-    # its chains-last kernel the pipelined ASSS machine
+    # K1's chains-first kernel ran the ARWMH lockstep path, the SA path and
+    # the harness's ARWMH and SA cells, its chains-last kernel the
+    # pipelined ASSS machine and the harness's ASSS cells and lr_decay
     kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
-                            k1_main + k1_sa, lanes[("chol_update", "first")],
+                            k1_main + k1_sa + k1_harness[0],
+                            lanes[("chol_update", "first")],
                             k1_res["first"]),
                kernel_entry("chol_update_cl", "chol_update.cu", K1_REPLACES,
-                            k1_asss[False][1],
+                            k1_asss[False][1] + k1_harness[1],
                             lanes[("chol_update", "last")], k1_res["last"])]
     for lib, source, replaces, res in (
             ("arwmh_fused", "arwmh_fused.cu", K2_REPLACES, k2_res),

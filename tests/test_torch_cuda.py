@@ -789,3 +789,108 @@ def test_sample_pnx_same_seed_same_rollout_from_the_graph(cuda, name):
     assert torch.equal(a, b) and torch.equal(a, e)
     assert not torch.equal(a, amt.sample_pnx(k, 8, x, adapt, n=5,
                                              n_samples=512))
+
+
+def _asss_runs(cuda, kernel, init, n_steps, n_frames, thinning):
+    """Two step_n calls (the second replays the graph the first kept),
+    then collect_n, eagerly and from the CUDA graph, each from a generator
+    of the same seed: (state and frame tensors, the generator's next
+    draws) per mode."""
+    out = []
+    for eager in (True, False):
+        g = torch.Generator(cuda).manual_seed(9)
+        s = kernel.step_n(init, n_steps, g, eager=eager)
+        s = kernel.step_n(s, n_steps, g, eager=eager)
+        s, frames = kernel.collect_n(s, n_frames, thinning, g, eager=eager)
+        torch.cuda.synchronize()
+        out.append([*state_tensors(s), *frames.values(),
+                    torch.rand(4, generator=g, device=cuda)])
+    return out
+
+
+@pytest.mark.parametrize("name,C", [("eight_schools_noncentered", 256),
+                                    ("diamonds", 64)])
+def test_asss_machine_graph_equals_eager_blocks(cuda, name, C):
+    t = getattr(amt, name)()
+    k = amt.asss(t, amt.ASSSConfig(num_warmup=15))
+    init = k.init(torch.Generator(cuda).manual_seed(5), n_chains=C)
+    k1.launches = 0
+    eager, graph = _asss_runs(cuda, k, init, 10, 6, 2)
+    assert k1.launches > 0
+    for a, b in zip(eager, graph):
+        assert a.is_cuda and torch.equal(a, b)
+    assert int(graph[0]) == 32
+
+
+def test_asss_step_n_keeps_its_graph_and_a_fresh_clock(cuda):
+    """A second step_n call of the same shape replays the kept graph (no
+    new capture) with the state's own i: with max_shrinkage_iters=0 the
+    adaptation depends on the clock alone, so two calls equal one."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as m
+
+    k = amt.asss(amt.eight_schools_noncentered(),
+                 amt.ASSSConfig(num_warmup=5, max_shrinkage_iters=0))
+    s0 = k.init(torch.Generator(cuda).manual_seed(1), n_chains=64)
+    g = torch.Generator(cuda).manual_seed(2)
+    one = k.step_n(s0, 7, g)
+    two = k.step_n(k.step_n(s0, 3, g), 4, g)
+    for a, b in zip(state_tensors(one), state_tensors(two)):
+        assert torch.equal(a, b)
+    assert m.GRAPH_ITERS > 1
+
+
+def test_asss_potential_reading_the_host_raises_on_the_first_block(cuda):
+    base = amt.std_normal(2)
+
+    def potential(x):
+        scale = float(x.abs().max().item() >= 0.0)   # a host read
+        return scale * base.potential_fn(x)
+
+    t = dataclasses.replace(base, potential_fn=potential)
+    k = amt.asss(t)
+    g = torch.Generator(cuda).manual_seed(1)
+    init = k.init(g, n_chains=16)
+    before = g.get_state()
+    with pytest.raises(RuntimeError, match="cannot capture asss.step_n"):
+        k.step_n(init, 4, g)
+    assert torch.equal(g.get_state(), before)
+    assert int(k.step_n(init, 4, g, eager=True).i) == 4
+
+
+def test_run_w_eval_on_the_card(cuda, tmp_path):
+    from adaptive_mcmc_tpu_torch.experiments.configs import RunConfig
+    from adaptive_mcmc_tpu_torch.experiments.runner import run_w_eval
+
+    for kernel, fan in (("asss", 1), ("nuts", 4)):
+        cfg = RunConfig(target="eight_schools", kernel=kernel, n_seeds=16,
+                        num_warmup=200, num_samples=800, thinning=4,
+                        fan_out=fan, out_dir=str(tmp_path))
+        npz = run_w_eval(cfg, verbose=False)
+        with np.load(npz) as d:
+            assert d["samples"].shape == (16, 200, 10)
+            assert np.isfinite(d["samples"]).all()
+            meta = __import__("json").loads(str(d["meta"]))
+        assert meta["driver"] == "collect_n"
+        assert meta["config"]["fan_out"] == fan
+
+
+def test_evaluate_run_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The metrics on the card against the CPU within 5.64e-5
+    relative (the auction's W within its ε_final bound)."""
+    import json
+
+    from adaptive_mcmc_tpu_torch.experiments.evaluate import evaluate_run
+
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(4, 300, 3)).astype(np.float32)
+    npz = tmp_path / "k.npz"
+    np.savez_compressed(npz, samples=x, meta=json.dumps(
+        {"config": {"fan_out": 1}}))
+    ref = rng.normal(size=(300, 3)).astype(np.float32)
+    card = evaluate_run(npz, ref, exact_w_batch=2)
+    cpu = evaluate_run(npz, ref, exact_w_batch=2, device="cpu")
+    for c in ("rmse_means", "sinkhorn", "mmd", "ess_median", "ess_min"):
+        np.testing.assert_allclose(card[c], cpu[c], rtol=5.64e-5, err_msg=c)
+    span = float(np.linalg.norm(ref.max(0) - ref.min(0))) * 2
+    np.testing.assert_allclose(card["wasserstein"], cpu["wasserstein"],
+                               atol=span / 300)

@@ -18,6 +18,8 @@ MODULES = sorted(
     + [f"adaptive_mcmc_tpu_torch.{p.parent.name}"
        for p in PORT.glob("*/__init__.py")]
     + ["adaptive_mcmc_tpu_torch.ops.cuda"]
+    + [f"adaptive_mcmc_tpu_torch.experiments.{m}"
+       for m in ("cli", "compare_wasserstein", "gold_spread", "sweep")]
     + [f"adaptive_mcmc_tpu_torch.{p.stem}" for p in PORT.glob("*.py")
        if p.stem != "__init__"])
 FORBIDDEN = ("jax", "jaxlib", "adaptive_mcmc_tpu")

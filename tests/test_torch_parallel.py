@@ -1,0 +1,154 @@
+"""The one-device parallel layer of the port (adaptive_mcmc_tpu_torch
+.parallel): fan_state's clone-major layout against JAX's on the same
+state, run_mcmc_sharded against the port's run_mcmc bit for bit (ARWMH's
+lockstep loop, ASSS's collect_n), chunked runs against unchunked ones,
+fan-out shapes, and the mesh's refusal of more than one device."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from adaptive_mcmc_tpu import ARWMHConfig as JConfig  # noqa: E402
+from adaptive_mcmc_tpu import arwmh as jarwmh  # noqa: E402
+from adaptive_mcmc_tpu import models as jm  # noqa: E402
+from adaptive_mcmc_tpu.parallel.run import fan_state as jfan  # noqa: E402
+import adaptive_mcmc_tpu_torch as amt  # noqa: E402
+from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors  # noqa: E402
+from adaptive_mcmc_tpu_torch.parallel import (  # noqa: E402
+    chain_mesh,
+    fan_state,
+    initialize_distributed,
+    run_mcmc_sharded,
+)
+
+CPU = torch.device("cpu")
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def test_fan_state_layout_matches_jax():
+    """The same positions and adapt state through both fan_states: every
+    per-chain leaf tiles clone-major, the iteration counter stays."""
+    C, F, d = 5, 4, 3
+    rng = np.random.default_rng(0)
+    pos = rng.normal(size=(C, d)).astype(np.float32)
+    jk = jarwmh(jm.std_normal(d), JConfig(num_warmup=0))
+    js = jk.init(jax.random.PRNGKey(0), n_chains=C,
+                 position=jnp.asarray(pos))
+    ts = amt.arwmh(amt.std_normal(d)).init(n_chains=C,
+                                           position=torch.from_numpy(pos))
+    # the two packages' potentials round apart: feed JAX the port's
+    js = js._replace(potential_energy=jnp.asarray(
+        ts.potential_energy.numpy()))
+    jf, tf = jfan(js, F), fan_state(ts, F)
+    for name in ("position", "potential_energy", "mean_accept_prob",
+                 "as_change"):
+        np.testing.assert_array_equal(getattr(tf, name).numpy(),
+                                      np.asarray(getattr(jf, name)))
+    for a, b in zip(tf.adapt_state, jf.adapt_state):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert tf.position.shape == (C * F, d) and int(tf.i) == int(jf.i)
+    np.testing.assert_array_equal(
+        tf.position.numpy().reshape(C, F, d),
+        np.repeat(pos[:, None], F, axis=1))
+
+
+@pytest.mark.parametrize("name", ["arwmh", "asss"])
+def test_sharded_equals_run_mcmc(name):
+    t = amt.eight_schools_noncentered()
+    k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=6)) if name == "arwmh" \
+        else amt.asss(t, amt.ASSSConfig(num_warmup=6))
+    fields = ("potential_energy", "as_change")
+    want = amt.run_mcmc(k, _gen(3), 6, 12, thinning=3, n_chains=8,
+                        extra_fields=fields)
+    got = run_mcmc_sharded(k, _gen(3), 6, 12, thinning=3, n_chains=8,
+                           extra_fields=fields)
+    assert got[0].shape == (4, 8, 10)
+    assert torch.equal(got[0], want[0])
+    for f in fields:
+        assert torch.equal(got[1][f], want[1][f])
+    for a, b in zip(state_tensors(got[2]), state_tensors(want[2])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["arwmh", "sa"])
+def test_chunked_equals_unchunked(name):
+    """A lockstep kernel's chunk boundary changes no draw, in the warmup
+    (chunks of 7 steps) and in the collection (chunks of 2 frames)."""
+    t = amt.eight_schools_noncentered()
+    k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=10)) if name == "arwmh" \
+        else amt.sa(t, amt.SAConfig(num_warmup=10))
+    whole = run_mcmc_sharded(k, _gen(4), 10, 24, thinning=3, n_chains=6,
+                             extra_fields=("potential_energy",))
+    chunked = run_mcmc_sharded(k, _gen(4), 10, 24, thinning=3, n_chains=6,
+                               extra_fields=("potential_energy",),
+                               max_steps_per_call=7)
+    assert torch.equal(whole[0], chunked[0])
+    assert torch.equal(whole[1]["potential_energy"],
+                       chunked[1]["potential_energy"])
+    for a, b in zip(state_tensors(whole[2]), state_tensors(chunked[2])):
+        assert torch.equal(a, b)
+
+
+def test_chunked_asss_collects_every_frame():
+    """The machine's chunks (here 2 frames per collect_n call) end at a
+    barrier and draw differently, but every frame is a landed state."""
+    k = amt.asss(amt.eight_schools_noncentered(),
+                 amt.ASSSConfig(num_warmup=4))
+    s, extras, last = run_mcmc_sharded(
+        k, _gen(5), 4, 18, thinning=3, n_chains=6,
+        extra_fields=("potential_energy",), max_steps_per_call=6)
+    assert s.shape == (6, 6, 10) and int(last.i) == 22
+    assert torch.isfinite(s).all() and not (s == 0).all(dim=-1).any()
+    torch.testing.assert_close(extras["potential_energy"],
+                               k.target.potential_fn(s.reshape(-1, 10))
+                               .reshape(6, 6))
+    assert torch.equal(s[-1], last.position)
+
+
+@pytest.mark.parametrize("name", ["arwmh", "nuts"])
+def test_fan_out_shapes_and_distinct_clones(name):
+    """fan_out=4: (frames, C*F, d) with clones contiguous per chain; the
+    clones start equal and part after sampling."""
+    t = amt.std_normal(3)
+    k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=0)) if name == "arwmh" \
+        else amt.nuts(t, amt.NUTSConfig(num_warmup=8))
+    samples, extras, last = run_mcmc_sharded(
+        k, _gen(1), 8, 64, thinning=2, n_chains=8, fan_out=4,
+        extra_fields=("potential_energy",))
+    assert samples.shape == (8, 32, 3)        # 64 / (2 * 4) frames
+    assert extras["potential_energy"].shape == (8, 32)
+    assert last.position.shape == (32, 3)
+    assert len({tuple(r) for r in samples[-1].tolist()}) == 32
+    with pytest.raises(ValueError, match="thinning \\* fan_out"):
+        run_mcmc_sharded(k, _gen(1), 8, 60, thinning=2, n_chains=8,
+                         fan_out=4)
+
+
+def test_mesh_is_one_device():
+    assert chain_mesh(devices=["cpu"]) == CPU
+    assert chain_mesh(1, devices=["cpu"]) == CPU
+    with pytest.raises(NotImplementedError, match="A15"):
+        chain_mesh(2)
+    with pytest.raises(NotImplementedError, match="A15"):
+        chain_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="A15"):
+        initialize_distributed(num_processes=2)
+    initialize_distributed()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            chain_mesh()
+
+
+def test_generator_and_mesh_must_agree():
+    k = amt.arwmh(amt.std_normal(2))
+    with pytest.raises(ValueError, match="generator"):
+        run_mcmc_sharded(k, _gen(0), 2, 4, n_chains=2,
+                         mesh=torch.device("meta"))
