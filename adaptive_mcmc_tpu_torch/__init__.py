@@ -9,10 +9,11 @@ driven by ``run_mcmc`` / ``MCMC`` (and the resumable
 ``run_mcmc_checkpointed`` and the log-grid ``collect_states_logscale``),
 and the diagnostics: ``metrics`` (moments, sliced and exact Wasserstein
 with the ε-auction, MMD, Sinkhorn), ``sample_pnx``, ``contraction`` (the
-Lipschitz-NN estimators) and ``analysis`` (invariance and contraction
-curves), the experiment harness (``experiments``: the w_eval and lr_decay
-sweeps, their evaluation and the CLI) on the one-device sharded driver
-(``parallel``), with kernel K1 (the rank-1 Cholesky
+Lipschitz-NN estimators) and ``analysis`` (invariance, contraction
+curves, the posterior utilities), the experiment harness
+(``experiments``: the w_eval and lr_decay sweeps, through K2/K3 with
+``--fused``, their evaluation and the CLI) on the one-device sharded
+driver with its collectives (``parallel``), with kernel K1 (the rank-1 Cholesky
 update), kernel K2 (the fused ARWMH sweep, ``ARWMHConfig(fused=True)``) and kernel
 K3 (the fused ASSS sweep, ``ASSSConfig(fused=True)``), both taking every
 posterior above, diamonds at d = 26 included.  It

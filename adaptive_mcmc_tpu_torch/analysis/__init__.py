@@ -1,5 +1,6 @@
-"""Invariance and contraction-curve checks (PyTorch), with the names of
-``adaptive_mcmc_tpu.analysis`` for what the port has."""
+"""Invariance and contraction-curve checks and the posterior utilities
+(PyTorch), with the names of ``adaptive_mcmc_tpu.analysis`` for what the
+port has."""
 
 from adaptive_mcmc_tpu_torch.analysis.invariance import (  # noqa: F401
     invariance_ks,
@@ -13,4 +14,9 @@ from adaptive_mcmc_tpu_torch.analysis.contraction_curves import (  # noqa: F401
     frozen_asss,
     taus_finite_difference,
     taus_finite_difference_arctan,
+)
+from adaptive_mcmc_tpu_torch.analysis.posterior import (  # noqa: F401
+    functional_convergence,
+    pe_offset,
+    posterior_predictive,
 )

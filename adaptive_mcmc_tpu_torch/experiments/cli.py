@@ -3,7 +3,7 @@
     python -m adaptive_mcmc_tpu_torch.experiments.cli w_eval \
         --target eight_schools --kernel arwmh [--seeds 100] [--scale 0.1]
     python -m adaptive_mcmc_tpu_torch.experiments.cli lr_decay \
-        --target eight_schools_centered --kernel arwmh [--n-pow 6]
+        --target eight_schools_centered --kernel arwmh [--n-pow 6] [--fused]
     python -m adaptive_mcmc_tpu_torch.experiments.cli evaluate \
         --target eight_schools --kernel arwmh
     python -m adaptive_mcmc_tpu_torch.experiments.cli summary \
@@ -12,7 +12,8 @@
 The commands, flags and ``--scale`` of ``adaptive_mcmc_tpu.experiments.cli``
 (``--scale`` shrinks the reference iteration budgets proportionally for
 smoke runs), plus ``--device``: every command runs on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given, and ``--fused``: w_eval and lr_decay run ARWMH
+through K2 and ASSS through K3 (``runner.build_kernel``).
 """
 
 from __future__ import annotations
@@ -53,6 +54,10 @@ def main(argv=None):
     p.add_argument("--ref-draws", type=int, default=10_000)
     p.add_argument("--device", default=None,
                    help="torch device of the run (default: the CUDA card)")
+    p.add_argument("--fused", action="store_const", const=True,
+                   default=None,
+                   help="w_eval / lr_decay: ARWMH through K2, ASSS through "
+                        "K3 (default: the kernels' own pick)")
     args = p.parse_args(argv)
 
     if args.command == "w_eval":
@@ -63,7 +68,7 @@ def main(argv=None):
         cfg = RunConfig(
             target=args.target, kernel=args.kernel, n_seeds=args.seeds,
             lr_decay=args.lr_decay, out_dir=args.out_dir,
-            mesh_devices=args.mesh_devices, **budget,
+            mesh_devices=args.mesh_devices, fused=args.fused, **budget,
         )
         run_w_eval(cfg, device=args.device)
     elif args.command == "lr_decay":
@@ -72,6 +77,7 @@ def main(argv=None):
         run_lr_decay(
             args.target, args.kernel, n_pow=args.n_pow,
             n_seeds=args.seeds, out_dir=args.out_dir, device=args.device,
+            fused=args.fused,
         )
     elif args.command == "evaluate":
         from pathlib import Path

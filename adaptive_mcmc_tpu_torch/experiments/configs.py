@@ -40,9 +40,17 @@ class RunConfig:
     mesh_devices: Optional[int] = None  # None = the one device (the port
                                         # runs one; more waits for A15)
     out_dir: str = OUT_ROOT
+    fused: Optional[bool] = None      # ARWMH/ASSS through K2/K3 (True), the
+                                      # lockstep/machine (False), or the
+                                      # kernels' own pick (None)
 
     def to_json(self) -> str:
-        return json.dumps(dataclasses.asdict(self), indent=2)
+        # ``fused`` is the port's field: left out at its default, so that
+        # such a config's JSON is the JAX package's, byte for byte
+        d = dataclasses.asdict(self)
+        if d["fused"] is None:
+            del d["fused"]
+        return json.dumps(d, indent=2)
 
     @staticmethod
     def from_json(s: str) -> "RunConfig":

@@ -41,10 +41,26 @@ from adaptive_mcmc_tpu_torch.metrics import (
     pth_moment_rmse,
     wasserstein_sinkhorn,
 )
-from adaptive_mcmc_tpu_torch.models.data import JAX_MODELS_DIR
+from adaptive_mcmc_tpu_torch.models.data import DATA_DIR
 
 COLUMNS = ("rng_seed", "rmse_means", "wasserstein", "sinkhorn", "mmd",
            "ess_median", "ess_min")
+
+
+# The sweep's reference run where no gold draws are vendored (eight
+# schools, kidiq): the JAX sweep's settings (scripts/run_full_sweeps.py),
+# given to make_reference_draws by the sweep, moments_parity and
+# gold_spread alike
+REFERENCE_RUN = dict(n_draws=10_000, n_chains=256, num_warmup=3000,
+                     thinning=10, rng_seed=999)
+
+
+def reference_settings(n_draws: int, *, n_chains: int, num_warmup: int,
+                       thinning: int, rng_seed: int) -> dict:
+    """The settings a reference run's cache is stamped with."""
+    return {"n_draws": n_draws, "n_chains": n_chains,
+            "num_warmup": num_warmup, "thinning": thinning,
+            "rng_seed": rng_seed, "lr_decay": 2.0 / 3.0}
 
 
 def make_reference_draws(
@@ -60,9 +76,21 @@ def make_reference_draws(
     device=None,
 ) -> np.ndarray:
     """Self-consistent gold standard: many parallel chains, long warmup,
-    heavy thinning.  Cached to disk."""
+    heavy thinning.  Cached to disk as ``<target>_<kernel>.npy`` beside a
+    ``.json`` of the run's settings (:func:`reference_settings`); a cached
+    run is reused only where its settings are these, and a cache without
+    them or of other settings raises."""
+    settings = reference_settings(n_draws, n_chains=n_chains,
+                                  num_warmup=num_warmup, thinning=thinning,
+                                  rng_seed=rng_seed)
     cache = Path(cache_dir) / f"{target_name}_{kernel_name}.npy"
+    stamp = cache.with_suffix(".json")
     if cache.exists():
+        cached = json.loads(stamp.read_text()) if stamp.exists() else None
+        if cached != settings:
+            raise ValueError(
+                f"{cache} was built with {cached}, not {settings}: give "
+                f"another cache_dir")
         return np.load(cache)
     from adaptive_mcmc_tpu_torch.infer.mcmc import run_mcmc
 
@@ -70,7 +98,8 @@ def make_reference_draws(
     target = TARGETS[target_name]()
     per_chain = max(1, -(-n_draws // n_chains))  # ceil: never under-deliver
     kernel = build_kernel(
-        kernel_name, target, lr_decay=2.0 / 3.0, num_warmup=num_warmup
+        kernel_name, target, lr_decay=settings["lr_decay"],
+        num_warmup=num_warmup
     )
     samples, _, _ = run_mcmc(
         kernel,
@@ -83,6 +112,7 @@ def make_reference_draws(
     out = samples.cpu().numpy().reshape(-1, target.dim)[:n_draws]
     cache.parent.mkdir(parents=True, exist_ok=True)
     np.save(cache, out)
+    stamp.write_text(json.dumps(settings) + "\n")
     return out
 
 
@@ -157,12 +187,12 @@ def posteriordb_reference_draws(target_name: str) -> Optional[np.ndarray]:
 
 
 def vendored_gold_draws(target_name: str) -> Optional[np.ndarray]:
-    """Vendored real gold-standard draws in comparison space, read by path
-    from the JAX package's data (``models/_gold``).
+    """Vendored real gold-standard draws in comparison space
+    (``models/_data``, copies of the JAX package's ``models/_gold``).
 
     diamonds: the PosteriorDB gold standard, 10k x 26 float32 in
     [Intercept, b(24), log(sigma)] layout; no other target is vendored."""
-    p = JAX_MODELS_DIR / "_gold" / f"{target_name}.npy"
+    p = DATA_DIR / f"{target_name}.npy"
     return np.load(p) if p.exists() else None
 
 

@@ -1,7 +1,7 @@
 """How far a w_eval cell's grade moves with its gold set: the cell's run
 graded against several independent reference runs of the port, each made
-as the sweep makes its own (a long NUTS run: 256 chains, 3000 warmup,
-thinning 10), one ``rng_seed`` each; per reference, rmse, W and MMD mean
+as the sweep makes its own (``evaluate.REFERENCE_RUN``: a long NUTS run of
+256 chains, 3000 warmup, thinning 10), one ``rng_seed`` each; per reference, rmse, W and MMD mean
 and std over seeds (std with ddof 1), then each metric's spread over the
 references.
 
@@ -25,6 +25,7 @@ from pathlib import Path
 
 from adaptive_mcmc_tpu_torch.experiments.configs import OUT_ROOT
 from adaptive_mcmc_tpu_torch.experiments.evaluate import (
+    REFERENCE_RUN,
     evaluate_run,
     make_reference_draws,
 )
@@ -53,8 +54,8 @@ def main(argv=None) -> dict:
     refs = {}
     for seed in (int(s) for s in args.ref_seeds.split(",")):
         refs[seed] = make_reference_draws(
-            args.target, 10_000, kernel_name=args.ref_kernel, rng_seed=seed,
-            n_chains=256, num_warmup=3000, thinning=10,
+            args.target, kernel_name=args.ref_kernel,
+            **{**REFERENCE_RUN, "rng_seed": seed},
             cache_dir=str(Path(args.out_dir) / "reference_draws"
                           / f"seed_{seed}"),
             device=args.device)

@@ -57,31 +57,49 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# the kernels with a fused whole-sweep kernel, and its name
+FUSED_KERNELS = {"arwmh": "K2", "asss": "K3"}
+
+
 def _driver_name(kernel, kernel_name: str) -> str:
     """Which driver run_mcmc_sharded will pick for this kernel + the
-    w_eval extra_fields (provenance stamp for the saved npz)."""
+    w_eval extra_fields (provenance stamp for the saved npz): the fused
+    kernels stamp their own name (``collect_n:K2``, ``collect_n:K3``), so
+    a fused row never reads as the ASSS machine's ``collect_n``."""
     fields = {"position", "potential_energy"}
     if kernel_name in ("arwmh", "rwm", "asss"):
         fields.add("as_change")
+    fused = f":{FUSED_KERNELS[kernel_name]}" \
+        if getattr(kernel.config, "fused", None) else ""
     if getattr(kernel, "collect_n", None) is not None and fields <= set(
         getattr(kernel, "collect_fields", ())
     ):
-        return "collect_n"
+        return "collect_n" + fused
     if getattr(kernel, "step_n", None) is not None:
-        return "step_n"
+        return "step_n" + fused
     return "lockstep"
 
 
-def build_kernel(name: str, target, *, lr_decay: float, num_warmup: int):
+def build_kernel(name: str, target, *, lr_decay: float, num_warmup: int,
+                 fused=None):
+    """The kernel of a harness cell.  ``fused`` is ``ARWMHConfig`` /
+    ``ASSSConfig``'s field: True runs ARWMH through K2 and ASSS through K3
+    at any dimension (the switch the JAX sweep reaches through
+    ``AMT_*_FUSED``, without the auto-pick's d <= 16), False the lockstep
+    step / the pipelined machine, None (the default) the kernels' own
+    pick.  NUTS, SA and RWM have no fused kernel: ``fused=True`` raises."""
+    if fused and name not in FUSED_KERNELS:
+        raise ValueError(f"{name!r} has no fused kernel (fused=True is for "
+                         "arwmh (K2) and asss (K3))")
     if name in ("arwmh", "rwm"):
         cfg = _kernels.ARWMHConfig(
             lr_decay=lr_decay, num_warmup=num_warmup,
-            adapt=(name == "arwmh"),
+            adapt=(name == "arwmh"), fused=fused,
         )
         return _kernels.arwmh(target, cfg)
     if name == "asss":
         return _kernels.asss(target, _kernels.ASSSConfig(
-            lr_decay=lr_decay, num_warmup=num_warmup))
+            lr_decay=lr_decay, num_warmup=num_warmup, fused=fused))
     if name == "nuts":
         return _kernels.nuts(target, _kernels.NUTSConfig(
             num_warmup=num_warmup))
@@ -111,6 +129,7 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
     kernel = build_kernel(
         config.kernel, target,
         lr_decay=config.lr_decay, num_warmup=config.num_warmup,
+        fused=config.fused,
     )
     n_chains = config.n_seeds * config.chains_per_seed
     # one device: the chain count is already a multiple of the mesh size
@@ -154,7 +173,8 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
         "chain_iters_per_sec": total_iters / wall,
         # provenance stamp: which step driver generated these draws
         # (pipelined in-driver collector / pipelined step_n / plain
-        # lockstep).  Mirrors run_mcmc_sharded's choice.
+        # lockstep, with :K2 / :K3 where fused).  Mirrors
+        # run_mcmc_sharded's choice.
         "driver": _driver_name(kernel, config.kernel),
     }
     np.savez_compressed(
@@ -183,6 +203,7 @@ def run_lr_decay(
     seed0: int = 0,
     verbose: bool = True,
     device=None,
+    fused=None,
 ):
     """Log-scale state-trajectory sweep: for each lr_decay, ONE batched run
     carries all seeds; saves i / position / PE / as_change trajectories on
@@ -191,7 +212,8 @@ def run_lr_decay(
 
     Skip predicates are artifact-keyed (not manifest-only): a cell is
     complete iff its summary CSV is on disk; a surviving npz with a
-    missing summary is backfilled without re-running the sweep."""
+    missing summary is backfilled without re-running the sweep.
+    ``fused`` as in :func:`build_kernel` (True: K2 / K3)."""
     from adaptive_mcmc_tpu_torch.experiments.summaries import (
         summary_path_for,
         write_lr_decay_summary,
@@ -221,7 +243,8 @@ def run_lr_decay(
             continue
         dev = run_device(device)
         kernel = build_kernel(
-            kernel_name, target, lr_decay=lr_decay, num_warmup=0
+            kernel_name, target, lr_decay=lr_decay, num_warmup=0,
+            fused=fused,
         )
         # bound driver calls: ASSS steps cost ~5-10x ARWMH's, so cap
         # tighter
@@ -242,12 +265,15 @@ def run_lr_decay(
             potential_energy=states.potential_energy.cpu().numpy(),
             as_change=states.as_change.cpu().numpy(),
         )
-        write_lr_decay_summary(
-            out_path,
-            {"target": target_name, "kernel": kernel_name,
-             "lr_decay": tag, "n_pow": n_pow,
-             "wall_seconds": f"{wall:.2f}"},
-        )
+        meta = {"target": target_name, "kernel": kernel_name,
+                "lr_decay": tag, "n_pow": n_pow,
+                "wall_seconds": f"{wall:.2f}"}
+        if fused:
+            # the stamp of a fused run, whose grid points are K2 / K3
+            # step_n calls (the JAX summaries have no driver key, and a
+            # default run's meta stays theirs)
+            meta["driver"] = f"step_n:{FUSED_KERNELS[kernel_name]}"
+        write_lr_decay_summary(out_path, meta)
         manifest.mark_done(tag)
         if verbose:
             print(f"[done] {out_path} ({wall:.1f}s)")

@@ -5,20 +5,25 @@ state file of one row per cell.  The port's counterpart of
 
     python -m adaptive_mcmc_tpu_torch.experiments.sweep \\
         --state mcmc_runs/torch_h100/results_state.json \\
-        [--scale diamonds/arwmh=0.1,diamonds/asss=0.05] [--targets ...]
+        [--scale diamonds/arwmh=0.1,diamonds/asss=0.05] [--targets ...] \\
+        [--fused arwmh,asss]
 
 Budgets are ``W_EVAL_BUDGETS`` cut by the CLI's ``--scale`` per cell (1
 by default); NUTS fans out 16 clones per chain after warmup where the
-draw count divides (``FAN_OUT``, as ``scripts/run_full_sweeps.py``).  The
-gold standard is the vendored PosteriorDB draws where there are some
-(diamonds), else a long NUTS run of the port (256 chains, 3000 warmup,
-thinning 10; cached under ``--out-dir``; ``--ref-kernel`` picks another
-sampler for it).  The exact W covers the first ``--exact-w-seeds`` seeds
+draw count divides (``FAN_OUT``, as ``scripts/run_full_sweeps.py``).
+``--fused`` names the kernels (``arwmh``, ``asss``) or cells
+(``diamonds/arwmh``) that run through K2 / K3 (``runner.build_kernel``);
+the others take their default drivers.  The gold standard is the vendored
+PosteriorDB draws where there are some (diamonds), else a long NUTS run of
+the port (``evaluate.REFERENCE_RUN``: 256 chains, 3000 warmup, thinning
+10, seed 999, the JAX sweep's settings; cached in ``reference_draws/``
+beside the state file;
+``--ref-kernel`` picks another sampler for it).  The exact W covers the first ``--exact-w-seeds`` seeds
 (all by default) by the batched ε-auction (8 seeds per batch,
 warm-started), checked against the host Hungarian on seed 8, the first
 warm-started one.
 
-A row holds the scale, fan-out and driver stamp, wall and chain-iters/s
+A row holds the scale, fan-out, driver stamp and reference, wall and chain-iters/s
 of the run, rmse / W / MMD mean and std over seeds (std with ddof 1),
 ``ess_med`` (median over seeds of each seed's median-dim ESS),
 ``ess_per_sec`` (the seeds' median-dim ESS summed, over the run's wall),
@@ -41,6 +46,7 @@ from adaptive_mcmc_tpu_torch.bench import card_name
 from adaptive_mcmc_tpu_torch.experiments.cli import _scaled_budget
 from adaptive_mcmc_tpu_torch.experiments.configs import OUT_ROOT, RunConfig
 from adaptive_mcmc_tpu_torch.experiments.evaluate import (
+    REFERENCE_RUN,
     evaluate_run,
     get_reference_draws,
 )
@@ -53,13 +59,30 @@ EXACT_W_BATCH = 8
 
 
 def cell_config(target: str, kernel: str, scale: float, seeds: int,
-                out_dir: str) -> RunConfig:
+                out_dir: str, fused=None) -> RunConfig:
     budget = _scaled_budget(target, kernel, scale)
     fan = FAN_OUT.get(kernel, 1)
     if (budget["num_samples"] // budget["thinning"]) % fan:
         fan = 1
     return RunConfig(target=target, kernel=kernel, n_seeds=seeds,
-                     out_dir=out_dir, fan_out=fan, **budget)
+                     out_dir=out_dir, fan_out=fan, fused=fused, **budget)
+
+
+def add_fused_arg(ap: argparse.ArgumentParser) -> None:
+    """``--fused``: the kernels (``arwmh``, ``asss``) or cells
+    (``diamonds/arwmh``) that run through K2 / K3, comma-separated, as a
+    set; none by default (every cell on its default driver, as the JAX
+    sweeps).  The sweep's and lr_sweep's one parser."""
+    ap.add_argument("--fused", default=frozenset(),
+                    type=lambda s: frozenset(filter(None, s.split(","))),
+                    help="kernels or cells run through K2/K3, e.g. "
+                         "arwmh,asss or diamonds/arwmh; none by default")
+
+
+def is_fused(fused: set, target: str, kernel: str):
+    """True where ``--fused`` names the kernel or the cell, else None (the
+    kernel's default driver)."""
+    return True if {kernel, f"{target}/{kernel}"} & fused else None
 
 
 def metric_stats(table) -> dict:
@@ -78,15 +101,14 @@ def metric_stats(table) -> dict:
 
 def run_cell(target: str, kernel: str, scale: float, *, seeds: int,
              out_dir: str, csv_dir: Path, exact_w_seeds: int, card: str,
-             ref_kernel: str = "nuts", device=None) -> dict:
-    cfg = cell_config(target, kernel, scale, seeds, out_dir)
+             ref_kernel: str = "nuts", fused=None, device=None) -> dict:
+    cfg = cell_config(target, kernel, scale, seeds, out_dir, fused)
     npz = run_w_eval(cfg, device=device)
     with np.load(npz, allow_pickle=False) as data:
         meta = json.loads(str(data["meta"]))
     ref = get_reference_draws(
-        target, 10_000, kernel_name=ref_kernel, n_chains=256,
-        num_warmup=3000, thinning=10,
-        cache_dir=str(Path(out_dir) / "reference_draws"), device=device)
+        target, kernel_name=ref_kernel, **REFERENCE_RUN,
+        cache_dir=str(csv_dir / "reference_draws"), device=device)
     timings: dict = {}
     t0 = time.perf_counter()
     table = evaluate_run(
@@ -120,13 +142,14 @@ def main(argv=None):
     ap.add_argument("--scale", default="",
                     help="per-cell scales, target/kernel=s,...; others 1")
     ap.add_argument("--out-dir", default=OUT_ROOT,
-                    help="npz files, manifests, cached reference draws")
+                    help="npz files and manifests")
     ap.add_argument("--state", default="mcmc_runs/torch_h100/"
                     "results_state.json")
     ap.add_argument("--exact-w-seeds", type=int, default=100)
     ap.add_argument("--ref-kernel", default="nuts",
                     help="kernel of the reference run where no gold draws "
                          "are vendored (eight schools, kidiq)")
+    add_fused_arg(ap)
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
 
@@ -155,7 +178,9 @@ def main(argv=None):
                            seeds=args.seeds, out_dir=args.out_dir,
                            csv_dir=state_path.parent,
                            exact_w_seeds=args.exact_w_seeds, card=card,
-                           ref_kernel=args.ref_kernel, device=args.device)
+                           ref_kernel=args.ref_kernel,
+                           fused=is_fused(args.fused, target, kernel),
+                           device=args.device)
             state[key] = row
             state_path.parent.mkdir(parents=True, exist_ok=True)
             state_path.write_text(json.dumps(state, indent=1) + "\n")

@@ -5,7 +5,9 @@ importing that module pulls JAX in through its package.  Data comes from
 PosteriorDB when ``$MCMC_WORKDIR/posteriordb`` exists, and otherwise from
 the vendored arrays and the same seeded generators as the JAX package
 (equal bit for bit): the diamonds generator reads the sufficient statistics
-vendored with the JAX package, in place, by path.
+from ``_data/``, the port's byte-for-byte copy of the JAX package's
+``models/_diamonds_stats.npz``, beside the diamonds gold draws
+(``_data/diamonds.npy``, a copy of its ``models/_gold/diamonds.npy``).
 """
 
 from __future__ import annotations
@@ -18,10 +20,9 @@ from pathlib import Path
 
 import numpy as np
 
-# the JAX package's vendored model data: the diamonds sufficient statistics
-# and the diamonds gold draws (``_gold/diamonds.npy``)
-JAX_MODELS_DIR = Path(__file__).resolve().parents[2] / "adaptive_mcmc_tpu" \
-    / "models"
+# the port's vendored model data: the diamonds sufficient statistics and
+# gold draws
+DATA_DIR = Path(__file__).resolve().parent / "_data"
 
 
 def _pdb_root() -> Path | None:
@@ -92,7 +93,7 @@ def diamonds() -> dict:
 
     Fallback: a deterministic (X, Y) whose sufficient statistics (n, XcᵀXc,
     XcᵀYc, YcᵀYc, Ȳ) equal those recovered from the real data's gold draws
-    (``_diamonds_stats.npz`` of the JAX package), so its posterior is the
+    (``_data/_diamonds_stats.npz``), so its posterior is the
     real one: a Gaussian linear regression's posterior depends on the data
     only through them.
     """
@@ -100,7 +101,7 @@ def diamonds() -> dict:
     if d is not None:
         return {"Y": np.asarray(d["Y"], np.float32),
                 "X": np.asarray(d["X"], np.float32)}
-    s = np.load(JAX_MODELS_DIR / "_diamonds_stats.npz")
+    s = np.load(DATA_DIR / "_diamonds_stats.npz")
     A, c, yty, ybar, n = (
         s["A"], s["c"], float(s["yty"]), float(s["ybar"]), int(s["n"])
     )

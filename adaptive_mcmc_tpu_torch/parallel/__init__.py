@@ -1,7 +1,7 @@
 """Chain-parallel execution (PyTorch): the one-device part of
-``adaptive_mcmc_tpu.parallel``.  ``cross_chain_moments``,
-``sharded_gelman_rubin``, ``chain_sharding`` and ``replicated`` wait for
-torch.distributed (ROADMAP A15)."""
+``adaptive_mcmc_tpu.parallel``, its collectives included.
+``chain_sharding`` and ``replicated`` wait for torch.distributed (ROADMAP
+A15)."""
 
 from adaptive_mcmc_tpu_torch.parallel.mesh import (  # noqa: F401
     CHAIN_AXIS,
@@ -9,6 +9,8 @@ from adaptive_mcmc_tpu_torch.parallel.mesh import (  # noqa: F401
     initialize_distributed,
 )
 from adaptive_mcmc_tpu_torch.parallel.run import (  # noqa: F401
+    cross_chain_moments,
     fan_state,
     run_mcmc_sharded,
+    sharded_gelman_rubin,
 )

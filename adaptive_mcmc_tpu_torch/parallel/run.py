@@ -3,10 +3,12 @@
 Counterpart of ``adaptive_mcmc_tpu/parallel/run.py`` on the port's one
 device: :func:`run_mcmc_sharded` runs a warmup and a thinned collection in
 bounded calls with an optional post-warmup fan-out (:func:`fan_state`),
-as the experiment harness drives every sweep.  The JAX package also splits
-the chain axis over a mesh and has the collectives
-``cross_chain_moments`` and ``sharded_gelman_rubin``; those wait for
-torch.distributed (ROADMAP A15).
+as the experiment harness drives every sweep, and the collectives
+:func:`cross_chain_moments` and :func:`sharded_gelman_rubin`, written as
+the JAX package's are: per-device partial sums, then one reduction each
+over the chain axis (:func:`_chain_sum`), which is the identity on the one
+device.  Splitting the chain axis over several devices waits for
+torch.distributed (ROADMAP A15), which puts an all-reduce there.
 """
 
 from __future__ import annotations
@@ -140,3 +142,48 @@ def run_mcmc_sharded(
                 out[f][k] = getattr(state, f)
     samples = out.pop(sample_field)
     return samples, out, state
+
+
+# ---------------------------------------------------------------------------
+# Collective diagnostics: per-device partial sums, reduced over the chain
+# axis (JAX: lax.psum over the chains mesh axis).
+# ---------------------------------------------------------------------------
+
+def _chain_sum(partial: torch.Tensor) -> torch.Tensor:
+    """The sum of a per-device partial over the devices of the chain axis:
+    the identity on the port's one device."""
+    return partial
+
+
+def cross_chain_moments(x: torch.Tensor,
+                        mesh: Optional[torch.device] = None):
+    """Global (mean, var) over the chain axis of a (C, ...) tensor without
+    gathering: per-device partial sums + one reduction each.  ``mesh`` is
+    the device of :func:`chain_mesh` (by default ``x``'s)."""
+    if mesh is not None:
+        x = x.to(mesh)
+    n = _chain_sum(torch.tensor(float(x.shape[0]), device=x.device))
+    s = _chain_sum(torch.sum(x, dim=0))
+    s2 = _chain_sum(torch.sum(x * x, dim=0))
+    mean = s / n
+    var = s2 / n - mean * mean
+    return mean, var
+
+
+def sharded_gelman_rubin(samples: torch.Tensor,
+                         mesh: Optional[torch.device] = None):
+    """Split-R̂ of (draws, chains, ...) samples with the chains on their
+    devices: per-chain means and variances where the chains live, then
+    reductions of O(params) numbers, never of the draws."""
+    x = samples if mesh is None else samples.to(mesh)
+    half = x.shape[0] // 2
+    x = torch.cat([x[:half], x[half:2 * half]], dim=1)
+    n = x.shape[0]
+    cm = torch.mean(x, dim=0)
+    cv = torch.var(x, dim=0, correction=1)
+    m = _chain_sum(torch.tensor(float(x.shape[1]), device=x.device))
+    w = _chain_sum(torch.sum(cv, dim=0)) / m
+    mean_all = _chain_sum(torch.sum(cm, dim=0)) / m
+    b = n * _chain_sum(torch.sum((cm - mean_all) ** 2, dim=0)) / (m - 1.0)
+    var_hat = (n - 1) / n * w + b / n
+    return torch.sqrt(var_hat / w)

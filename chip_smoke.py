@@ -93,19 +93,30 @@ Phases, in order; any failure ends the run with a non-zero exit:
    acceptance, num_steps, divergences, trips, ms per trip, chain-iters/s,
    and no kernel of csrc/ launched; the experiment harness through the
    CLI's functions (adaptive_mcmc_tpu_torch.experiments): run_w_eval of
-   the ten W_EVAL_BUDGETS cells at 100 seeds, each budget cut by its
-   HARNESS_SCALES entry (the CLI's --scale), NUTS at fan_out=16, each cell
+   the ten W_EVAL_BUDGETS cells at 100 seeds on their default drivers,
+   each budget cut by its HARNESS_SCALES entry (the CLI's --scale), NUTS
+   at fan_out=16, then diamonds ARWMH and ASSS again through K2 and K3
+   (RunConfig.fused, the sweep's --fused) at the same scales, each cell
    through its gate (eight schools: mean mu and mean log tau against the
    quadrature; kidiq: every mean within 0.1 posterior sd of the
-   quadrature; diamonds NUTS: diamonds_gate; diamonds ARWMH and ASSS, too
-   short to converge here: the npz's draws and potential energies equal
-   bit for bit those of run_mcmc_sharded driven directly with the same
-   kernel, seed and budget) with its wall, chain-iters/s,
-   driver stamp and K1 launches, run_lr_decay of centered eight schools
-   ASSS (n_pow 4, three decays), and evaluate_run on the three diamonds
-   cells against the gold draws (exact W on 8 seeds in one batch, the
-   Hungarian check on seeds 0 and 1, no Sinkhorn column, as the sweep
-   grades; seconds per metric column); the
+   quadrature; diamonds NUTS: diamonds_gate; the four diamonds ARWMH and
+   ASSS cells, too short to converge here: the npz's draws and potential
+   energies equal bit for bit those of run_mcmc_sharded driven directly
+   with the same kernel, seed and budget) with its wall, chain-iters/s,
+   driver stamp (collect_n:K2 / collect_n:K3 where fused) and its K1, K2
+   or K3 launches; posterior_predictive on the kidiq ARWMH cell's draws
+   (y_rep's mean over draws against X @ E[beta] within 3 MC standard
+   errors); cross_chain_moments and sharded_gelman_rubin on the eight
+   schools ARWMH cell's draws against torch's mean and var and the split
+   R-hat at fp32 tolerance; run_lr_decay of centered eight schools ASSS on
+   the machine (n_pow 4, one decay) and of centered eight schools ARWMH
+   through K2 (n_pow 4, three decays), every summary on the log grid and
+   stamped with its driver; evaluate_run on the default drivers' three
+   diamonds cells against the gold draws (exact W on 8 seeds in one
+   batch, the Hungarian check on seeds 0 and 1, no Sinkhorn column, as
+   the sweep grades; seconds per metric column); K2 and K3 at the w_eval
+   shape (100 chains, each target's d): µs per step of a timed step_n
+   beside its bound per step; the
    checkpointed driver (ARWMH on std_normal(3), 64 chains) interrupted after its first
    chunk and resumed against run_mcmc bit for bit, and
    collect_states_logscale(n_pow=4)'s grid; the port's bench
@@ -242,15 +253,30 @@ HARNESS_SCALES = {                                              # time
 }
 # diamonds' gold bands need some 10^6 warmup steps of ARWMH and 2 x 10^5 of
 # ASSS (PERF.md §4), the w_eval budgets' 10^6 and 5 x 10^5 at --scale 1
-# (11 and 5.5 million steps in all, hours through the lockstep graph and
-# the machine): no scale of these two cells both fits the script and
-# converges.  Their gate is the harness itself: the npz's draws and
-# potential energies against run_mcmc_sharded driven directly (the kernel
-# built by hand, a generator of the config's seed, the same budget), bit
-# for bit; the full sweep grades them against the gold
-# (mcmc_runs/torch_h100/results_state.json)
+# (11 and 5.5 million steps in all): the sweep runs them through K2 and K3
+# (its --fused) and grades them against the gold
+# (mcmc_runs/torch_h100/results_state.json).  Here these two cells run
+# twice at the scales above, too short to converge: on their default
+# drivers (the sweep without --fused: the lockstep ARWMH through K1's
+# chains-first kernel at d = 26, the ASSS machine through its chains-last
+# one), then through K2 and K3 as the sweep's --fused runs them
+# (RunConfig.fused).  Their gate is the harness itself: the npz's draws and
+# potential energies against run_mcmc_sharded driven directly (the same
+# kernel built by hand, a generator of the config's seed, the same
+# budget), bit for bit
 HARNESS_DIRECT = (("diamonds", "arwmh"), ("diamonds", "asss"))
-HARNESS_LR_DECAY = ("eight_schools_centered", "asss", 4)
+# lr_decay: one cell on the ASSS machine (K1; one decay, cut from three
+# for time) and one through K2 (three decays); (target, kernel, n_pow,
+# decays (None: all three), fused)
+HARNESS_LR_DECAY = ("eight_schools_centered", "asss", 4, (2.0 / 3.0,), None)
+HARNESS_LR_DECAY_K2 = ("eight_schools_centered", "arwmh", 4, None, True)
+# K2 and K3 at the w_eval shape (100 chains, each target's d): a timed
+# step_n of each, beside its bound per step
+W_EVAL_STEPS = {"arwmh_fused": 20000, "asss_fused": 5000}
+# posterior_predictive on the harness's kidiq ARWMH draws; the collectives
+# on its eight-schools ARWMH draws (fp32 tolerance: |a - b| <= atol + rtol
+# |b|)
+COLLECTIVE_RTOL, COLLECTIVE_ATOL = 1e-5, 1e-6
 HARNESS_EVAL_SEEDS, HARNESS_EVAL_BATCH = 8, 8
 # eight schools: tests/test_sa.py's bands on mean mu and mean log tau;
 # kidiq: every coordinate's mean within 0.1 posterior sd of the quadrature
@@ -454,8 +480,8 @@ def check_k1(k1, dev, card: str) -> dict:
 
 def gold_draws(amt) -> np.ndarray:
     """The PosteriorDB gold draws of diamonds (10000, 26), flat
-    unconstrained, float64 (vendored beside the JAX package's models)."""
-    return np.load(amt.models.data.JAX_MODELS_DIR / "_gold"
+    unconstrained, float64 (vendored in the port's ``models/_data``)."""
+    return np.load(amt.models.data.DATA_DIR
                    / "diamonds.npy").astype(np.float64)
 
 
@@ -1733,18 +1759,20 @@ def profile_asss_machine(amt, name: str, state, card: str) -> dict:
 
 
 def direct_drive(amt, cfg) -> dict:
-    """A w_eval cell's draws without the harness: its kernel built by hand,
-    run_mcmc_sharded from a generator of the config's seed at its budget
-    (fan-out 1, no chunk cap), pooled by hand into the npz's (seeds, draws,
-    ...) layout."""
+    """A w_eval cell's draws without the harness: its kernel built by hand
+    (through K2 / K3 where the config is fused), run_mcmc_sharded from a
+    generator of the config's seed at its budget (fan-out 1, no chunk cap),
+    pooled by hand into the npz's (seeds, draws, ...) layout."""
     from adaptive_mcmc_tpu_torch.parallel import run_mcmc_sharded
     target = getattr(amt, cfg.target)()
     if cfg.kernel == "arwmh":
         kernel = amt.arwmh(target, amt.ARWMHConfig(
-            lr_decay=cfg.lr_decay, num_warmup=cfg.num_warmup, adapt=True))
+            lr_decay=cfg.lr_decay, num_warmup=cfg.num_warmup, adapt=True,
+            fused=cfg.fused))
     else:
         kernel = amt.asss(target, amt.ASSSConfig(
-            lr_decay=cfg.lr_decay, num_warmup=cfg.num_warmup))
+            lr_decay=cfg.lr_decay, num_warmup=cfg.num_warmup,
+            fused=cfg.fused))
     require(cfg.fan_out == 1 and cfg.chains_per_seed == 1,
             f"{cfg.run_name()}: one chain per seed")
     samples, extras, _ = run_mcmc_sharded(
@@ -1799,38 +1827,190 @@ def harness_gate(amt, cfg, npz: dict, label: str) -> str:
     return "quadrature"
 
 
-def run_harness(amt, k1, counters, card: str) -> dict:
-    """Every w_eval cell through run_w_eval at HARNESS_SEEDS seeds, its
-    budget cut by HARNESS_SCALES (the CLI's --scale), NUTS fanned out 16
-    ways; each cell's gate; run_lr_decay of one ASSS cell; evaluate_run on
-    the diamonds cells against the gold draws with the Hungarian check.
-    Returns K1's launches: (chains first, chains last)."""
+def check_lr_decay(amt, runner, summaries, cell, out_dir, label: str,
+                   card: str) -> None:
+    """run_lr_decay of one HARNESS_LR_DECAY-like cell; every summary on
+    the log grid, finite and stamped with its driver where fused."""
+    target, kernel, n_pow, decays, fused = cell
+    t0 = time.perf_counter()
+    paths = runner.run_lr_decay(
+        target, kernel, n_pow=n_pow, n_seeds=HARNESS_SEEDS,
+        out_dir=str(out_dir / label.replace(" ", "_")), verbose=False,
+        fused=fused, **({} if decays is None else {"lr_decays": decays}))
+    grid = amt.ns_logscale(n_pow).numpy()
+    for p in paths:
+        meta, cols = summaries.read_lr_decay_summary(
+            summaries.summary_path_for(p))
+        require(np.array_equal(cols["i"], grid)
+                and all(np.isfinite(v).all() for v in cols.values()),
+                f"lr_decay summary {p.name}")
+        require(meta.get("driver") == ("step_n:"
+                                       + runner.FUSED_KERNELS[kernel]
+                                       if fused else None),
+                f"lr_decay {label}: driver {meta.get('driver')}")
+    print(f"harness lr_decay {target}/{kernel} ({label}), n_pow {n_pow}, "
+          f"{len(paths)} decay(s) x {HARNESS_SEEDS} seeds: "
+          f"{time.perf_counter() - t0:.3f} s, {len(grid)} grid points per "
+          f"decay, summaries finite on {card}")
+
+
+def check_posterior_predictive(amt, samples, card: str) -> None:
+    """posterior_predictive on a kidiq cell's draws (seeds, draws, 4) on the
+    card: y_rep's mean over the draws against X @ E[β] (E[β] the draws'
+    mean).  Their difference at observation j is the mean over draws of
+    σ_k z_kj, with MC standard error s_j = sqrt(mean σ² / n); the mean over
+    the 434 observations of the difference in s_j (sd 1 / sqrt(434) under
+    the model) and of its square (sd sqrt(2 / 434)) are held within 3 of
+    their standard errors."""
+    from adaptive_mcmc_tpu_torch.analysis import posterior_predictive
+    t0 = time.perf_counter()
+    x = torch.from_numpy(samples.reshape(-1, samples.shape[-1])).cuda()
+    target = amt.kidiq()
+    out = posterior_predictive(target, torch.Generator("cuda").manual_seed(3),
+                               x)["kid_score_rep"]
+    d = amt.models.data.kidiq()
+    X = torch.from_numpy(np.stack([np.ones_like(d["mom_hs"]), d["mom_hs"],
+                                   d["mom_iq"]], 1)).double().cuda()
+    sites = target.constrain(x.double())
+    n, n_obs = out.shape
+    require(out.is_cuda, "posterior_predictive ran off the card")
+    require(n_obs == X.shape[0] and bool(torch.isfinite(out).all()),
+            f"posterior_predictive: y_rep {tuple(out.shape)}")
+    diff = out.double().mean(0) - X @ sites["beta"].mean(0)
+    se = torch.sqrt((sites["sigma"] ** 2).mean() / n)
+    zs = (diff / se).cpu().numpy()
+    z_mean = float(zs.mean()) * np.sqrt(n_obs)
+    z_sq = (float((zs ** 2).mean()) - 1.0) / np.sqrt(2.0 / n_obs)
+    print(f"posterior_predictive kidiq on {n} draws x {n_obs} observations: "
+          f"y_rep mean - X E[beta] in MC standard errors: mean "
+          f"{zs.mean():.4f} ({z_mean:.3f} of its s.e.), mean square "
+          f"{(zs ** 2).mean():.4f} ({z_sq:.3f} of its s.e.), max "
+          f"{np.abs(zs).max():.3f}; {time.perf_counter() - t0:.3f} s on "
+          f"{card}")
+    require(abs(z_mean) <= 3.0 and abs(z_sq) <= 3.0,
+            "posterior_predictive location off X @ E[beta]")
+
+
+def check_collectives(amt, samples, card: str) -> None:
+    """cross_chain_moments and sharded_gelman_rubin on a cell's draws
+    (seeds, draws, d) on the card against plain torch mean and var and
+    infer.diagnostics' split R̂ (float64 of the same draws), at fp32
+    tolerance."""
+    from adaptive_mcmc_tpu_torch.infer.diagnostics import gelman_rubin
+    from adaptive_mcmc_tpu_torch.parallel import (
+        chain_mesh,
+        cross_chain_moments,
+        sharded_gelman_rubin,
+    )
+    x = torch.from_numpy(samples).cuda()          # (chains, draws, d)
+    last = x[:, -1]
+    mean, var = cross_chain_moments(last, chain_mesh())
+    want_m = last.double().mean(0)
+    want_v = last.double().var(0, correction=0)
+    by_draw = x.transpose(0, 1).contiguous()       # (draws, chains, d)
+    rhat = sharded_gelman_rubin(by_draw, chain_mesh())
+    want_r = gelman_rubin(by_draw.double())
+    errs = [float(((a.double() - b).abs()
+                   / (COLLECTIVE_ATOL + COLLECTIVE_RTOL * b.abs())).max())
+            for a, b in ((mean, want_m), (var, want_v), (rhat, want_r))]
+    print(f"collectives on {tuple(x.shape)} draws (chains, draws, d): "
+          f"|err| / (atol + rtol |want|) at most: cross_chain_moments mean "
+          f"{errs[0]:.4f}, var {errs[1]:.4f}; sharded_gelman_rubin "
+          f"{errs[2]:.4f} against split R-hat (max R-hat "
+          f"{float(rhat.max()):.4f}) on {card}")
+    require(mean.is_cuda and rhat.is_cuda, "collectives left the card")
+    require(max(errs) <= 1.0, f"collectives: {errs}")
+
+
+def w_eval_fused_times(amt, card: str) -> None:
+    """K2 and K3 at the w_eval shape (100 chains, each target's d): µs per
+    step of one timed step_n (CUDA events) from a state warmed by a short
+    one, beside the bound per step at that shape (k2_bound / k3_bound; K3's
+    from this run's iteration counts)."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3
+    C = HARNESS_SEEDS
+    for name in ("eight_schools_noncentered", "eight_schools_centered",
+                 "kidiq", "diamonds"):
+        t = getattr(amt, name)()
+        n_data = t.data.on(torch.device("cuda"))["kernel_data"].numel()
+        for lib, S in W_EVAL_STEPS.items():
+            g = torch.Generator("cuda").manual_seed(11)
+            if lib == "arwmh_fused":
+                kernel = amt.arwmh(t, amt.ARWMHConfig(fused=True))
+            else:
+                kernel = amt.asss(t, amt.ASSSConfig(fused=True))
+            state = kernel.step_n(kernel.init(g, n_chains=C), 1000, g)
+            us = step_n_us(kernel, state, S, f"w_eval shape {lib}[{name}]",
+                           card)
+            if lib == "arwmh_fused":
+                b = k2_bound(name, C, t.dim, S, 0, n_data)
+            else:
+                drive = k3.build_fused_asss(t, kernel.config)
+                a = state.adapt_state
+                _, _, iters = drive((state.position, state.potential_energy,
+                                     a.loc, a.scale, state.i,
+                                     state.as_change), S, 0, 1,
+                                    generator=g, return_iters=True)
+                b = k3_bound(name, C, t.dim, S, 0, iters, n_data)
+            print(f"w_eval shape {lib}[{name}] ({C}, {t.dim}): {us:.4f} µs "
+                  f"per step, bound {b['bound_ms'] * 1e3 / S:.6f} µs per "
+                  f"step by {b['bound_by']} ({us / (b['bound_ms'] * 1e3 / S):.1f}x)"
+                  f" on {card}")
+
+
+def run_harness(amt, k1, counters, card: str):
+    """Every w_eval cell through run_w_eval at HARNESS_SEEDS seeds on its
+    default driver, its budget cut by HARNESS_SCALES (the CLI's --scale),
+    NUTS fanned out 16 ways, then the HARNESS_DIRECT cells again through K2
+    and K3; each cell's gate; the lr_decay cells (the ASSS machine, K2);
+    evaluate_run on the default drivers' diamonds cells against the gold
+    draws with the Hungarian check; posterior_predictive and the
+    collectives on the cells' draws.  Returns K1's launches (chains first,
+    chains last) and K2's and K3's by (lib, target)."""
     import shutil
     from adaptive_mcmc_tpu_torch.experiments import cli, configs, evaluate
     from adaptive_mcmc_tpu_torch.experiments import runner, summaries
+    k1, k2, k3 = counters
     out_dir = HARNESS_DIR
     shutil.rmtree(out_dir, ignore_errors=True)
     first = last = 0
+    fused_launches = {}
     npzs = {}
-    for (target, kernel), scale in HARNESS_SCALES.items():
+    cells = [(t, k, s, None) for (t, k), s in HARNESS_SCALES.items()]
+    cells += [(t, k, HARNESS_SCALES[(t, k)], True) for t, k in HARNESS_DIRECT]
+    for target, kernel, scale, fused in cells:
+        t_cell = time.perf_counter()
         budget = cli._scaled_budget(target, kernel, scale)
         fan = 16 if kernel == "nuts" else 1
         require((budget["num_samples"] // budget["thinning"]) % fan == 0,
                 f"{target}/{kernel}: draws do not divide by {fan}")
         cfg = configs.RunConfig(target=target, kernel=kernel,
                                 n_seeds=HARNESS_SEEDS, fan_out=fan,
-                                out_dir=str(out_dir), **budget)
+                                out_dir=str(out_dir / ("fused" if fused
+                                                       else "default")),
+                                fused=fused, **budget)
         reset_launches(*counters)
         npz = runner.run_w_eval(cfg, verbose=False)
         n_k1 = k1.launches
-        if kernel == "asss":
-            last += n_k1
-        elif kernel != "nuts":
-            first += n_k1
-        require(n_k1 > 0 if kernel != "nuts" else n_k1 == 0,
-                f"{target}/{kernel}: K1 launched {n_k1} times")
-        require(all(m.launches == 0 for m in counters if m is not k1),
-                f"{target}/{kernel} launched K2 or K3")
+        if fused:
+            mod, lib = (k2, "arwmh_fused") if kernel == "arwmh" \
+                else (k3, "asss_fused")
+            n_fused = mod.launches
+            fused_launches[(lib, target)] = n_fused
+            require(n_k1 == 0 and n_fused > 0,
+                    f"{target}/{kernel}: {lib} launched {n_fused} times, "
+                    f"K1 {n_k1}")
+            launched = f"{lib} launches {n_fused}"
+        else:
+            if kernel == "asss":
+                last += n_k1
+            elif kernel != "nuts":
+                first += n_k1
+            require(n_k1 > 0 if kernel != "nuts" else n_k1 == 0,
+                    f"{target}/{kernel}: K1 launched {n_k1} times")
+            require(all(m.launches == 0 for m in counters if m is not k1),
+                    f"{target}/{kernel} launched K2 or K3")
+            launched = f"K1 launches {n_k1}"
         with np.load(npz, allow_pickle=False) as d:
             arrays = {k: d[k] for k in ("samples", "potential_energy")}
             meta = json.loads(str(d["meta"]))
@@ -1840,35 +2020,41 @@ def run_harness(amt, k1, counters, card: str) -> dict:
         require(samples.shape == (HARNESS_SEEDS, draws, d_t)
                 and bool(np.isfinite(samples).all()),
                 f"{target}/{kernel}: samples {samples.shape}")
-        label = f"harness {target}/{kernel}"
+        stamp = meta["driver"]
+        require(stamp == f"collect_n:{runner.FUSED_KERNELS[kernel]}"
+                if fused else ":" not in stamp,
+                f"{target}/{kernel}: driver {stamp}")
+        label = f"harness {target}/{kernel}" + (
+            f" through {runner.FUSED_KERNELS[kernel]}" if fused else "")
         gate = harness_gate(amt, cfg, arrays, label)
         print(f"{label}: scale {scale} ({budget['num_warmup']} + "
               f"{budget['num_samples']} steps, thinning "
               f"{budget['thinning']}, fan-out {fan}), {HARNESS_SEEDS} "
               f"seeds: wall {meta['wall_seconds']:.3f} s, "
               f"{meta['chain_iters_per_sec']:.1f} chain-iters/s, driver "
-              f"{meta['driver']}, K1 launches {n_k1}, gate: {gate} on "
+              f"{meta['driver']}, {launched}, gate: {gate}; "
+              f"{time.perf_counter() - t_cell:.1f} s with the gate on "
               f"{card}")
+        if fused:
+            continue
         npzs[(target, kernel)] = npz
-    target, kernel, n_pow = HARNESS_LR_DECAY
+        if (target, kernel) == ("kidiq", "arwmh"):
+            check_posterior_predictive(amt, samples, card)
+        elif (target, kernel) == ("eight_schools", "arwmh"):
+            check_collectives(amt, samples, card)
     reset_launches(*counters)
-    t0 = time.perf_counter()
-    paths = runner.run_lr_decay(target, kernel, n_pow=n_pow,
-                                n_seeds=HARNESS_SEEDS, out_dir=str(out_dir),
-                                verbose=False)
+    check_lr_decay(amt, runner, summaries, HARNESS_LR_DECAY, out_dir,
+                   "the ASSS machine", card)
     last += k1.launches
     require(k1.launches > 0, "lr_decay never launched K1")
-    grid = amt.ns_logscale(n_pow).numpy()
-    for p in paths:
-        meta, cols = summaries.read_lr_decay_summary(
-            summaries.summary_path_for(p))
-        require(np.array_equal(cols["i"], grid)
-                and all(np.isfinite(v).all() for v in cols.values()),
-                f"lr_decay summary {p.name}")
-    print(f"harness lr_decay {target}/{kernel}, n_pow {n_pow}, "
-          f"{len(paths)} decays x {HARNESS_SEEDS} seeds: "
-          f"{time.perf_counter() - t0:.3f} s, {len(grid)} grid points per "
-          f"decay, summaries finite on {card}")
+    reset_launches(*counters)
+    check_lr_decay(amt, runner, summaries, HARNESS_LR_DECAY_K2, out_dir,
+                   "through K2", card)
+    key = ("arwmh_fused", HARNESS_LR_DECAY_K2[0])
+    fused_launches[key] = fused_launches.get(key, 0) + k2.launches
+    require(k2.launches > 0 and k1.launches == 0,
+            f"lr_decay through K2 launched K2 {k2.launches}, K1 "
+            f"{k1.launches} times")
     gold = gold_draws(amt)
     for kernel in ("arwmh", "asss", "nuts"):
         timings = {}
@@ -1887,7 +2073,8 @@ def run_harness(amt, k1, counters, card: str) -> dict:
               f"{HARNESS_EVAL_BATCH}, the Hungarian check held): {cols}; "
               f"seconds per column: {secs} on {card}")
     shutil.rmtree(out_dir, ignore_errors=True)
-    return first, last
+    w_eval_fused_times(amt, card)
+    return first, last, fused_launches
 
 
 def layouts(amt, build, chains: dict) -> dict:
@@ -1935,9 +2122,13 @@ def kernel_entry(name: str, source: str, replaces: str, launches: int,
 def main() -> int:
     t_start = time.perf_counter()
 
+    t_phase = [t_start]
+
     def elapsed(phase: str) -> None:
-        print(f"chip_smoke: {phase} done {time.perf_counter() - t_start:.1f} "
-              f"s after the start")
+        now = time.perf_counter()
+        print(f"chip_smoke: {phase} done {now - t_start:.1f} s after the "
+              f"start ({now - t_phase[0]:.1f} s)")
+        t_phase[0] = now
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2105,8 +2296,13 @@ def main() -> int:
           f"{nuts_kidiq_rate:.1f}")
     elapsed("the NUTS path")
 
-    # the experiment harness: the ten w_eval cells, lr_decay, evaluate_run
-    k1_harness = run_harness(amt, k1, counters, card)
+    # the experiment harness: the ten w_eval cells on their default drivers,
+    # diamonds ARWMH and ASSS again through K2 and K3, lr_decay,
+    # evaluate_run, posterior_predictive, the collectives, K2 and K3 at the
+    # w_eval shape
+    *k1_harness, harness_fused = run_harness(amt, k1, counters, card)
+    for key, n in harness_fused.items():
+        launches[key] += n
     elapsed("the experiment harness")
     check_drivers(amt)
     check_bench()
@@ -2137,8 +2333,10 @@ def main() -> int:
 
     # 9. results
     # K1's chains-first kernel ran the ARWMH lockstep path, the SA path and
-    # the harness's ARWMH and SA cells, its chains-last kernel the
-    # pipelined ASSS machine and the harness's ASSS cells and lr_decay
+    # the harness's ARWMH and SA cells on their default drivers, its
+    # chains-last kernel the pipelined ASSS machine and the harness's ASSS
+    # cells on the machine and its machine lr_decay; K2 and K3 the
+    # harness's fused diamonds cells, K2 its lr_decay cell too
     kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
                             k1_main + k1_sa + k1_harness[0],
                             lanes[("chol_update", "first")],

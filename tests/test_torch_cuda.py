@@ -290,7 +290,7 @@ def _start(t, C, device, seed):
     g = torch.Generator(device).manual_seed(seed)
     d = t.dim
     if t.name == "diamonds":
-        gold = np.load(amt.models.data.JAX_MODELS_DIR / "_gold"
+        gold = np.load(amt.models.data.DATA_DIR
                        / "diamonds.npy").astype(np.float64)
         mean, S = gold.mean(0), np.linalg.cholesky(np.cov(gold.T))
         sd = gold.std(0)

@@ -215,6 +215,9 @@ def test_cli_default_out_dir_leaves_the_jax_evidence_alone(tmp_path,
     (tmp_path / configs.OUT_ROOT / "reference_draws").mkdir(parents=True)
     np.save(tmp_path / configs.OUT_ROOT /
             "reference_draws/eight_schools_asss.npy", ref)
+    (tmp_path / configs.OUT_ROOT / "reference_draws/eight_schools_asss.json"
+     ).write_text(json.dumps(tev.reference_settings(
+         200, n_chains=50, num_warmup=2000, thinning=20, rng_seed=999)))
     for f in (tmp_path / "mcmc_runs").rglob("*"):
         if f.is_file() and configs.OUT_ROOT not in str(f):
             jax_files[f] = f.read_bytes()
@@ -252,8 +255,13 @@ def test_gold_spread_grades_one_run_against_each_reference(tmp_path,
 
     made = {}
 
-    def fake_reference(target, n, *, rng_seed, cache_dir, **kw):
+    def fake_reference(target, n_draws=0, *, rng_seed, cache_dir, **kw):
         made[rng_seed] = Path(cache_dir).name
+        if kw:            # gold_spread's call: the sweep's settings
+            assert {"n_draws": n_draws, "rng_seed": tev.REFERENCE_RUN[
+                "rng_seed"], **{k: kw[k] for k in (
+                    "n_chains", "num_warmup", "thinning")}} \
+                == tev.REFERENCE_RUN
         return np.random.default_rng(rng_seed).normal(size=(60, 10))
 
     monkeypatch.setattr(gold_spread, "make_reference_draws", fake_reference)

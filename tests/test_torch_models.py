@@ -146,7 +146,7 @@ GRAD_RTOL = {"diamonds": 1e-3, "diamonds_dense": 1e-3}
 
 
 def _gold():
-    return np.load(tm.data.JAX_MODELS_DIR / "_gold" / "diamonds.npy")
+    return np.load(tm.data.DATA_DIR / "diamonds.npy")
 
 
 def _kidiq_ols():

@@ -2,7 +2,9 @@
 .parallel): fan_state's clone-major layout against JAX's on the same
 state, run_mcmc_sharded against the port's run_mcmc bit for bit (ARWMH's
 lockstep loop, ASSS's collect_n), chunked runs against unchunked ones,
-fan-out shapes, and the mesh's refusal of more than one device."""
+fan-out shapes, the mesh's refusal of more than one device, and the
+collectives against JAX's on its 8-device CPU test mesh (rtol 1e-5) and
+against plain torch and the split R̂ of infer.diagnostics."""
 
 import numpy as np
 import pytest
@@ -16,14 +18,20 @@ import jax.numpy as jnp  # noqa: E402
 from adaptive_mcmc_tpu import ARWMHConfig as JConfig  # noqa: E402
 from adaptive_mcmc_tpu import arwmh as jarwmh  # noqa: E402
 from adaptive_mcmc_tpu import models as jm  # noqa: E402
+from adaptive_mcmc_tpu import parallel as jpar  # noqa: E402
 from adaptive_mcmc_tpu.parallel.run import fan_state as jfan  # noqa: E402
 import adaptive_mcmc_tpu_torch as amt  # noqa: E402
 from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors  # noqa: E402
+from adaptive_mcmc_tpu_torch.infer.diagnostics import (  # noqa: E402
+    gelman_rubin,
+)
 from adaptive_mcmc_tpu_torch.parallel import (  # noqa: E402
     chain_mesh,
+    cross_chain_moments,
     fan_state,
     initialize_distributed,
     run_mcmc_sharded,
+    sharded_gelman_rubin,
 )
 
 CPU = torch.device("cpu")
@@ -152,3 +160,34 @@ def test_generator_and_mesh_must_agree():
     with pytest.raises(ValueError, match="generator"):
         run_mcmc_sharded(k, _gen(0), 2, 4, n_chains=2,
                          mesh=torch.device("meta"))
+
+
+@pytest.mark.parametrize("shape", [(64, 3), (32, 2, 5)])
+def test_cross_chain_moments_match_jax_and_plain_torch(shape):
+    x = np.random.default_rng(3).normal(0.5, 1.5, size=shape) \
+        .astype(np.float32)
+    mean, var = cross_chain_moments(torch.from_numpy(x),
+                                    chain_mesh(devices=["cpu"]))
+    jmean, jvar = jpar.cross_chain_moments(jnp.asarray(x), jpar.chain_mesh())
+    assert len(jax.devices()) == 8 and mean.shape == shape[1:]
+    np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5)
+    np.testing.assert_allclose(var.numpy(), np.asarray(jvar), rtol=1e-5)
+    t = torch.from_numpy(x)
+    torch.testing.assert_close(mean, t.mean(0), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(var, t.var(0, correction=0), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("draws", [200, 201])
+def test_sharded_gelman_rubin_matches_jax_and_split_rhat(draws):
+    """(draws, chains, d), chains split over JAX's 8 devices; an odd draw
+    count drops the middle draw in both."""
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(draws, 16, 3))
+         + rng.normal(0, 0.3, size=(1, 16, 3))).astype(np.float32)
+    got = sharded_gelman_rubin(torch.from_numpy(x))
+    want = jpar.sharded_gelman_rubin(jnp.asarray(x), jpar.chain_mesh())
+    assert got.shape == (3,) and float(got.min()) > 1.0
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    torch.testing.assert_close(got, gelman_rubin(torch.from_numpy(x)),
+                               rtol=1e-5, atol=0)

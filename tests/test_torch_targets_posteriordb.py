@@ -68,7 +68,7 @@ def _start(name, C, seed):
     """(x, loc, lower scale factor) near the posterior, float32."""
     rng = np.random.default_rng(seed)
     if name == "diamonds":
-        gold = np.load(amt.models.data.JAX_MODELS_DIR / "_gold"
+        gold = np.load(amt.models.data.DATA_DIR
                        / "diamonds.npy").astype(np.float64)
         x = gold[rng.choice(len(gold), C, replace=False)]
         loc = np.broadcast_to(gold.mean(0), x.shape)
