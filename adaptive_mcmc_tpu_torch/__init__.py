@@ -10,7 +10,8 @@ driven by ``run_mcmc`` / ``MCMC`` (and the resumable
 and the diagnostics: ``metrics`` (moments, sliced and exact Wasserstein
 with the ε-auction, MMD, Sinkhorn), ``sample_pnx``, ``contraction`` (the
 Lipschitz-NN estimators) and ``analysis`` (invariance, contraction
-curves, the posterior utilities), the experiment harness
+curves, the posterior utilities, the figure families with their data on
+the card), the experiment harness
 (``experiments``: the w_eval and lr_decay sweeps, through K2/K3 with
 ``--fused``, their evaluation and the CLI) on the one-device sharded
 driver with its collectives (``parallel``), with kernel K1 (the rank-1 Cholesky

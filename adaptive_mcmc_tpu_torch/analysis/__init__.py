@@ -1,6 +1,7 @@
 """Invariance and contraction-curve checks and the posterior utilities
-(PyTorch), with the names of ``adaptive_mcmc_tpu.analysis`` for what the
-port has."""
+(PyTorch), with the names of ``adaptive_mcmc_tpu.analysis``.  The figure
+modules (``figures``, ``artifact_figures``, ``model_diagrams``) are
+imported on their own."""
 
 from adaptive_mcmc_tpu_torch.analysis.invariance import (  # noqa: F401
     invariance_ks,

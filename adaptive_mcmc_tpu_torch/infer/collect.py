@@ -6,8 +6,10 @@ states on a log-spaced iteration grid (at most 100 points per decade over
 diagnostic the lr-decay plots are built from.  The steps between two grid
 points go through :func:`~adaptive_mcmc_tpu_torch.infer.mcmc.advancer`, as
 in ``run_mcmc``: ``step_n`` where the kernel has one, otherwise, on the
-card, a CUDA graph of min(thinning, ``MAX_GRAPH_STEPS``) lockstep steps
-(ARWMH, RWM, SA), otherwise a Python loop.
+card, a CUDA graph of lockstep steps (ARWMH, RWM, SA; blocks of the
+largest divisor of the thinning up to ``MAX_GRAPH_STEPS``, so that a grid
+interval is whole replays) or of ASSS's lockstep parts, otherwise a Python
+loop.
 """
 
 from __future__ import annotations
@@ -71,7 +73,8 @@ def collect_states_logscale(
             else max(1, min(total_len, max_steps_per_call // thin))
         )
         advance = advancer(kernel, generator, state,
-                           min(thin, MAX_GRAPH_STEPS))
+                           max(b for b in range(1, MAX_GRAPH_STEPS + 1)
+                               if thin % b == 0))
         off = 0
         while off < total_len:
             length = min(chunk_len, total_len - off)

@@ -11,14 +11,16 @@ takes, asks for the Python loop over the same blocks).  Other kernels
 advance by their lockstep ``step``: where JAX jits the loop, PyTorch runs
 eagerly, so on a CUDA device ``run_mcmc`` captures a block of ``step``
 calls into a CUDA graph and replays it (:class:`StepBlocks`; kernels that
-declare ``graph_step``, ARWMH, RWM and SA), and elsewhere the loop over
+declare ``graph_step``, ARWMH, RWM and SA), or the parts of a step whose
+inner loop reads the host once per block of trips (:class:`LockstepGraph`;
+kernels that declare ``step_parts``, ASSS), and elsewhere the loop over
 steps is a Python loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from collections import OrderedDict
+from collections import Counter, OrderedDict
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -115,16 +117,21 @@ def state_tensors(state) -> list:
     return out
 
 
-def _capture(run_block: Callable, generator, kernel) -> Callable:
+def _capture(run_block: Callable, generator, kernel,
+             pool=None) -> Callable:
     """Capture ``run_block()`` into a CUDA graph and return its replay.
     The generator is registered with the graph, so that every replay draws
     on from the generator's state as the eager calls would.  A kernel
-    launch recorded at capture is counted once per replay instead."""
+    launch recorded at capture is counted once per replay instead.
+    ``pool``: a memory pool shared with other graphs that write all they
+    keep into buffers allocated outside them."""
     graph = torch.cuda.CUDAGraph()
     if generator is not None:
         graph.register_generator_state(generator)
+    shared = {} if pool is None else {"pool": pool}
     try:
-        with CapturedLaunches() as recorded, torch.cuda.graph(graph):
+        with CapturedLaunches() as recorded, \
+                torch.cuda.graph(graph, **shared):
             run_block()
     except Exception as e:
         raise _capture_error(kernel, e) from e
@@ -176,53 +183,73 @@ class StepBlocks:
 
 
 class BlockMachine:
-    """A pipelined machine's driver (NUTS's trips, ASSS's iterations):
-    blocks of ``block`` steps until every chain is done, ``done`` read on
-    the host between blocks.  Eagerly (``run`` given no generator) a block
-    is a Python loop over steps.  On the card the machine lives in static
-    buffers: the first block runs eagerly under a mode that refuses host
-    reads (a ``potential_fn`` that reads one cannot be captured), then one
-    block is captured into a CUDA graph with the generator registered, and
+    """A pipelined machine's driver (NUTS's trips, ASSS's iterations and
+    its lockstep step's shrinkage trips): blocks of ``block`` steps until
+    every chain is done, ``running`` read on the host between blocks.
+    Eagerly (``run`` given no generator) a block is a Python loop over
+    steps.  On the card the machine lives in static buffers: the first
+    block runs eagerly under a mode that refuses host reads (a
+    ``potential_fn`` that reads one cannot be captured), then one block is
+    captured into a CUDA graph with the generator registered, and
     replayed; it draws what the eager blocks draw.  The call's constants
     (``n_steps``, the first iteration, the thinning) are tensors in the
     buffers, never numbers baked into the graph.  A call without frame
-    buffers (``step_n``) keeps its graph for the next one with the same
+    buffers (``step_n``) keeps its graphs for the next one with the same
     shapes and generator.  A call with frames (``collect_n``) keeps none:
     its frame buffers are captured with it and handed back as they are, so
     none is copied or outlives the call.
 
     ``label`` names the machine in a refusal (``"nuts.step_n"``);
-    ``frames`` are the keys of the frame buffers in ``ctx``."""
+    ``frames`` are the keys of the frame buffers in ``ctx``; ``running(p,
+    ctx)``, a host bool, is by default whether a chain's ``done`` is below
+    ``n_steps``."""
 
-    def __init__(self, label: str, frames: tuple):
+    def __init__(self, label: str, frames: tuple, running=None):
         self.label, self.frames = label, frames
-        self.cached = None   # (key, generator, p buffers, ctx buffers, replay)
+        if running is not None:
+            self.running = running
+        # (key, generator, p buffers, ctx buffers, replays, memory pool)
+        self.cached = None
 
     @staticmethod
     def running(p: dict, ctx: dict) -> bool:
         return bool((p["done"] < ctx["n_steps"]).any())
 
     def run(self, p: dict, ctx: dict, step, block: int, count,
-            generator=None, saved=None):
+            generator=None, saved=None, *, begin=None, end=None,
+            repeat: int = 1, before=None):
         """Advance ``p`` to its end by ``step(p, ctx) -> p``; returns
         (p, ctx).  ``count(n)`` is told the steps of each block run.
         ``generator`` given: from the CUDA graph (the tensors are on the
         card); a refused first block puts the generator back to ``saved``,
-        its state before the call."""
+        its state before the call.
+
+        From the graph, with ``begin`` and ``end`` (each ``(p, ctx) ->
+        p``): ``repeat`` rounds of ``before(t)`` (a host call, such as a
+        reseed), ``begin``, the blocks until done, ``end``; ``begin``, one
+        block and ``end`` are each captured once, into graphs that share
+        one memory pool, and replayed (a lockstep step in parts,
+        :class:`LockstepGraph`, whose kernel runs the eager rounds
+        itself)."""
+        parts = {"block": lambda q, c: _loop(step, block, q, c)}
+        if begin is not None:
+            parts["begin"] = begin
+        if end is not None:
+            parts["end"] = end
         if generator is None:
             while self.running(p, ctx):
-                for _ in range(block):
-                    p = step(p, ctx)
+                p = parts["block"](p, ctx)
                 count(block)
             return p, ctx
         keep = not any(k in ctx for k in self.frames)
-        key = (block, tuple((k, tuple(t.shape), t.dtype, t.device)
-                            for k, t in sorted(ctx.items())),
+        key = (block, tuple(parts),
+               tuple((k, tuple(t.shape), t.dtype, t.device)
+                     for k, t in sorted(ctx.items())),
                tuple((k, tuple(t.shape), t.dtype)
                      for k in sorted(p) for t in state_tensors(p[k])))
         if keep and self.cached is not None and self.cached[0] == key \
                 and self.cached[1] is generator:
-            _, _, bp, bc, replay = self.cached
+            _, _, bp, bc, replays, pool = self.cached
             for k in p:
                 map_state(lambda dst, src: dst.copy_(src), bp[k], p[k])
             for k in ctx:
@@ -231,47 +258,94 @@ class BlockMachine:
             bp = {k: map_state(torch.clone, v) for k, v in p.items()}
             bc = {k: v if k in self.frames else v.clone()
                   for k, v in ctx.items()}
-            replay = None
+            replays, pool = {}, torch.cuda.graph_pool_handle()
+            if keep:
+                self.cached = (key, generator, bp, bc, replays, pool)
 
-        def run_block() -> None:
-            q = bp
-            for _ in range(block):
-                q = step(q, bc)
-            for k in bp:
-                map_state(lambda dst, src: dst if dst is src
-                          else dst.copy_(src), bp[k], q[k])
+        def run_part(name: str) -> None:
+            if name in replays:
+                replays[name]()
+                return
 
-        if self.running(bp, bc):
-            if replay is None:
-                try:
-                    with _NoHostRead():
-                        run_block()
-                except _HostRead as e:
-                    generator.set_state(saved)
-                    raise _capture_error(self.label, e) from e
-                count(block)
-                replay = _capture(run_block, generator, self.label)
-                if keep:
-                    self.cached = (key, generator, bp, bc, replay)
+            def run() -> None:
+                q = parts[name](bp, bc)
+                for k in bp:
+                    map_state(lambda dst, src: dst if dst is src
+                              else dst.copy_(src), bp[k], q[k])
+
+            try:
+                with _NoHostRead():
+                    run()
+            except _HostRead as e:
+                generator.set_state(saved)
+                raise _capture_error(self.label, e) from e
+            replays[name] = _capture(run, generator, self.label, pool)
+
+        for t in range(repeat):
+            if before is not None:
+                before(t)
+            if begin is not None:
+                run_part("begin")
             while self.running(bp, bc):
-                replay()
+                run_part("block")
                 count(block)
+            if end is not None:
+                run_part("end")
         if not keep:
             return bp, bc
         return ({k: map_state(torch.clone, v) for k, v in bp.items()},
                 {k: v.clone() for k, v in bc.items()})
 
 
+def _loop(step, n: int, p: dict, ctx: dict) -> dict:
+    for _ in range(n):
+        p = step(p, ctx)
+    return p
+
+
+class LockstepGraph:
+    """A lockstep step given in parts (``Kernel.step_parts``: ASSS) from
+    CUDA graphs on the card: the part before the loop, one block of
+    ``parts.block()`` trips and the part after the loop, each captured once
+    over static buffers with the generator registered
+    (:class:`BlockMachine`), the active mask read on the host once per
+    block.  The graphs are kept for the next ``advance`` with the same
+    shapes; the draws are those of the kernel's eager ``step``, which runs
+    the same blocks."""
+
+    def __init__(self, parts, generator, label: str):
+        self.parts, self.generator = parts, generator
+        self.machine = BlockMachine(
+            label, (), running=lambda p, ctx: bool(parts.running(p)))
+
+    def advance(self, state, n: int, before=None) -> dict:
+        """``n`` steps from ``state`` (left untouched); returns the step's
+        dict, the new state under ``"s"``.  ``before(t)`` is called on the
+        host before step t (a reseed of the generator)."""
+        parts, g = self.parts, self.generator
+        p, _ = self.machine.run(
+            parts.work(state), {}, lambda q, c: parts.trip(q, g),
+            parts.block(), parts.count, g, g.get_state(),
+            begin=lambda q, c: parts.begin(q, g),
+            end=lambda q, c: parts.end(q), repeat=n, before=before)
+        return p
+
+
 def advancer(kernel, generator, state, block: int, eager: bool = False):
     """``advance(state, n) -> state``: ``n`` steps of ``kernel`` as
     :func:`run_mcmc` takes them.  Through ``step_n`` where the kernel has
-    one (passing it ``eager``); from a CUDA graph of ``block`` steps
-    (:class:`StepBlocks`) where
-    its ``step`` can be captured and ``state`` lies on the card, unless
-    ``eager``; otherwise in a Python loop over ``step``.  Pass each call
+    one (passing it ``eager``); on the card, unless ``eager``, from a
+    CUDA graph of ``block`` steps (:class:`StepBlocks`) where its ``step``
+    can be captured, or from the graphs of its step's parts
+    (:class:`LockstepGraph`) where it has ``step_parts``; otherwise in a
+    Python loop over ``step``.  Pass each call
     the state the previous one returned."""
     if kernel.step_n is not None:
         return lambda s, n: kernel.step_n(s, n, generator, eager=eager)
+    if kernel.step_parts is not None and not eager and _on_card(state):
+        graph = LockstepGraph(kernel.step_parts, generator,
+                              f"{kernel.name}.step")
+        return lambda s, n: graph.advance(s, n)["s"]
     if kernel.graph_step and not eager and _on_card(state):
         blocks = StepBlocks(kernel, generator, state, block)
         return lambda s, n: blocks.advance(n)
@@ -312,11 +386,13 @@ def run_mcmc(
     The run is on the device of the state, which follows the generator's
     (``Target.init_position``): a CUDA generator puts it on the card.
     There, a kernel without ``step_n`` whose ``step`` can be captured
-    (``Kernel.graph_step``) runs its steps from a CUDA graph, with the draws
-    of the eager loop, and NUTS's ``step_n`` / ``collect_n`` its machine's
-    blocks of trips; ``init_state`` is never written.  A step that cannot
-    be captured after all raises.  ``eager=True`` asks for the Python loop
-    instead; a CPU run and a run with injected draws always take it.
+    (``Kernel.graph_step``) runs its steps from a CUDA graph, one with
+    ``step_parts`` (ASSS with ``step_n=None``) its step's parts, each with
+    the draws of the eager loop, and NUTS's ``step_n`` / ``collect_n`` its
+    machine's blocks of trips; ``init_state`` is never written.  A step
+    that cannot be captured after all raises.  ``eager=True`` asks for the
+    Python loop instead; a CPU run and a run with injected draws always
+    take it.
     """
     if num_samples % thinning:
         raise ValueError("num_samples must divide by thinning")
@@ -485,6 +561,8 @@ class MCMC:
 # device, generator) -> _Rollout, the least recently used dropped first
 _ROLLOUTS: OrderedDict = OrderedDict()
 MAX_ROLLOUTS = 8
+# sample_pnx calls by the device type their rollout ran on ("cuda", "cpu")
+rollout_devices: Counter = Counter()
 
 
 def _frozen(kernel):
@@ -505,18 +583,31 @@ def _frozen(kernel):
         return step(state, generator)._replace(i=state.i,
                                                adapt_state=state.adapt_state)
 
-    return dataclasses.replace(kernel, step=pinned)
+    parts = kernel.step_parts
+    if parts is not None:
+        end = parts.end
+
+        def pinned_end(p):
+            s = p["s"]
+            q = end(p)
+            return dict(q, s=q["s"]._replace(i=s.i,
+                                             adapt_state=s.adapt_state))
+
+        parts = parts._replace(end=pinned_end)
+    return dataclasses.replace(kernel, step=pinned, step_parts=parts)
 
 
 class _Rollout:
-    """A frozen kernel and, on the card for a kernel whose ``step`` can be
-    captured, its CUDA graph of the pinned steps over static buffers; with
-    the generator that seeded calls draw from."""
+    """A frozen kernel and, on the card, the CUDA graphs of its pinned
+    steps over static buffers (a kernel whose ``step`` can be captured) or
+    of its step's parts (ASSS); with the generator that seeded calls draw
+    from."""
 
     def __init__(self, kernel, device, generator):
         self.kernel = _frozen(kernel)
         self.generator = torch.Generator(device)
         self.blocks: Optional[StepBlocks] = None
+        self.lockstep: Optional[LockstepGraph] = None
         self.refs = (kernel, generator)     # keeps the ids of the key alive
 
 
@@ -554,9 +645,11 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
     generator's device, or for a seed on the device of ``x``.  On a CUDA
     device a kernel whose
     ``step`` can be captured (ARWMH, RWM, SA) replays its steps from a CUDA
-    graph kept for the next call with the same kernel, chain count, ``n``
-    and generator (or seed); ``eager=True`` asks for the Python loop, with
-    the same draws.  ASSS and NUTS run their eager ``step``."""
+    graph, and ASSS its step's parts (:class:`LockstepGraph`, reseeded
+    between the replays of two steps), each kept for the next call with
+    the same kernel, chain count, ``n`` and generator (or seed);
+    ``eager=True`` asks for the Python loop, with the same draws.  NUTS
+    runs its eager ``step``."""
     seeded = not isinstance(generator, torch.Generator)
     seed = int(generator) if seeded else None
     if seeded:
@@ -564,6 +657,7 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
     else:
         device = generator.device
     x = torch.as_tensor(x, dtype=torch.float32).to(device)
+    rollout_devices[device.type] += 1
     n_points, d = x.shape
     C = n_points * n_samples
 
@@ -590,6 +684,17 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
                       state)
         return entry.blocks.advance(n).position \
             .reshape(n_points, n_samples, d).clone()
+    if frozen.step_parts is not None and not eager \
+            and device.type == "cuda":
+        if entry.lockstep is None:
+            entry.lockstep = LockstepGraph(frozen.step_parts, generator,
+                                           f"{frozen.name}.step")
+
+        def reseed(t: int) -> None:
+            generator.manual_seed(hash((seed, t)) & (2**63 - 1))
+
+        return entry.lockstep.advance(state, n, reseed if seeded else None)[
+            "s"].position.reshape(n_points, n_samples, d)
     for t in range(n):
         if seeded and not frozen.graph_step:
             # a step whose draws depend on the data (ASSS's shrinkage trips,

@@ -18,11 +18,17 @@ with bracket shrinkage, map back, and adapt (loc, scale) by the running-mean
 Three drivers:
 
 * ``step`` — one lockstep transition for all chains: the shrinkage loop runs
-  until every chain has landed, evaluating the transformed potential for all
-  chains on each trip.  Its draws come from a ``torch.Generator`` or, for
-  replay, from :class:`ASSSDraws`.  The rank-1 update goes through kernel K1
-  (``ops/cholesky.adaptive_scale_update``).  ``probe`` runs it and returns
-  the per-chain mean trip count.
+  in blocks of ``SHRINK_TRIPS`` masked trips until every chain has landed,
+  evaluating the transformed potential for all chains on each trip, the
+  active mask read on the host once per block.  Its draws come from a
+  ``torch.Generator`` or, for replay, from :class:`ASSSDraws`.  The rank-1
+  update goes through kernel K1 (``ops/cholesky.adaptive_scale_update``).
+  ``probe`` runs it and returns the per-chain mean trip count.  The step's
+  parts (before the loop, one trip, after it: ``Kernel.step_parts``)
+  replay from CUDA graphs on the card
+  (``infer.mcmc.LockstepGraph``: ``run_mcmc`` and ``advancer`` with
+  ``step_n=None``, ``probe``, ``sample_pnx``), with the draws of the
+  Python loop over the same blocks.
 * ``step_n`` / ``collect_n`` — the pipelined drivers: each chain runs its own
   draw → shrink → land → adapt machine, one potential evaluation per
   iteration, chains-last, frames written as each chain lands them
@@ -50,8 +56,10 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from adaptive_mcmc_tpu_torch.infer.mcmc import LockstepGraph
 from adaptive_mcmc_tpu_torch.kernels.base import (
     Kernel,
+    StepParts,
     adaptation_lr,
     batch_positions,
     nan_to_inf,
@@ -67,6 +75,20 @@ from adaptive_mcmc_tpu_torch.ops.cuda.asss_fused import (
 )
 
 Tensor = torch.Tensor
+
+# shrinkage trips per block of the lockstep step: the step reads its active
+# mask on the host once per block (on the card, once per CUDA graph replay
+# of a block), not once per trip.  chip_smoke.py's trial on the H100 chose
+# it: 4 is the fastest of 4, 8, 16, 32 on eight schools at 4096 chains and
+# ties 8 on the figures' frozen rollouts at d = 1 (PERF.md §6)
+SHRINK_TRIPS = 4
+# trips run by the lockstep step, the masked ones of a block included
+trips = 0
+
+
+def _count(n: int) -> None:
+    global trips
+    trips += n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,39 +145,6 @@ def stereographic_inverse(z: Tensor, loc: Tensor, scale: Tensor) -> Tensor:
     return torch.einsum("...ij,...j->...i", scale, x_base) + loc
 
 
-def _shrinkage_batched(z, v, t_pe, transformed_pe, eps: float,
-                       max_iters: int, u_theta: Tensor, u_shrink):
-    """Batched great-circle shrinkage: per-chain brackets shrink under an
-    active mask, and the transformed potential is evaluated for all chains
-    on each trip.  ``u_shrink(k)`` gives the (C,) uniforms of trip k; a
-    chain that has landed draws nothing more.  Returns the landed sphere
-    points and the per-chain trip counts."""
-    theta = u_theta * TWO_PI
-    tmin, tmax = theta - TWO_PI, theta
-
-    def is_bad(theta):
-        z_theta = z * torch.cos(theta)[:, None] + v * torch.sin(theta)[:, None]
-        pe = nan_to_inf(transformed_pe(z_theta))
-        return (pe > t_pe) | ((1.0 - z_theta[:, -1]) < eps)
-
-    bad = is_bad(theta)
-    iters = torch.zeros(theta.shape, dtype=torch.int32, device=theta.device)
-    k = 0
-    while True:
-        active = bad & (iters < max_iters)
-        if not bool(active.any()):
-            break
-        tmin = torch.where(active & (theta < 0.0), theta, tmin)
-        tmax = torch.where(active & (theta >= 0.0), theta, tmax)
-        theta = torch.where(active, tmin + u_shrink(k) * (tmax - tmin), theta)
-        iters = iters + active.to(torch.int32)
-        bad = torch.where(active, is_bad(theta), bad)
-        k += 1
-    theta = torch.where(iters >= max_iters, torch.zeros_like(theta), theta)
-    z_f = z * torch.cos(theta)[:, None] + v * torch.sin(theta)[:, None]
-    return z_f, iters
-
-
 def asss(target, config: ASSSConfig = ASSSConfig()) -> Kernel:
     d = target.dim
     potential = target.potential_fn
@@ -179,94 +168,169 @@ def asss(target, config: ASSSConfig = ASSSConfig()) -> Kernel:
             as_change=torch.zeros(n_chains, device=dev),
         )
 
-    def _transition(state: ASSSState, generator, draws: Optional[ASSSDraws]):
-        """One lockstep transition; also returns the per-chain trip
-        counts."""
-        loc, scale = state.adapt_state
-        x = state.position
-        C, dev = x.shape[0], x.device
-        if draws is None:
-            if generator is None:
-                raise ValueError("a torch.Generator or injected draws are "
-                                 "needed")
-            draws = ASSSDraws(
-                velocity=torch.randn((C, d + 1), generator=generator,
-                                     device=dev),
-                u_level=torch.rand((C,), generator=generator, device=dev),
-                u_theta=torch.rand((C,), generator=generator, device=dev),
-                u_shrink=None,
-            )
+    eps, max_iters = config.eps, config.max_shrinkage_iters
 
-            def u_shrink(k):
-                return torch.rand((C,), generator=generator, device=dev)
-        else:
-            def u_shrink(k):
-                if k >= draws.u_shrink.shape[0]:
-                    raise ValueError(f"injected u_shrink has "
-                                     f"{draws.u_shrink.shape[0]} rows; trip "
-                                     f"{k} needs more")
-                return draws.u_shrink[k]
+    def transformed_pe(z, loc, sig):
+        x_flat = stereographic_inverse(z, loc, sig)
+        return potential(x_flat) + d * torch.log(1.0 - z[:, -1])
 
-        sigma_sqrt = (scale + config.eps * torch.eye(d, device=dev)) \
-            * (d ** 0.5)
+    def is_bad(p, theta):
+        z_theta = p["z"] * torch.cos(theta)[:, None] \
+            + p["v"] * torch.sin(theta)[:, None]
+        pe = nan_to_inf(transformed_pe(z_theta, p["s"].adapt_state.loc,
+                                       p["sig"]))
+        return (pe > p["t_pe"]) | ((1.0 - z_theta[:, -1]) < eps)
 
-        def transformed_pe(z):
-            x_flat = stereographic_inverse(z, loc, sigma_sqrt)
-            return potential(x_flat) + d * torch.log(1.0 - z[:, -1])
+    def work(state: ASSSState) -> dict:
+        """The step's dict: the state and the loop's tensors, zeroed."""
+        C, dev = state.position.shape[0], state.position.device
+        zero = torch.zeros(C, device=dev)
+        return dict(s=state, sig=torch.zeros((C, d, d), device=dev),
+                    z=torch.zeros((C, d + 1), device=dev),
+                    v=torch.zeros((C, d + 1), device=dev), t_pe=zero,
+                    theta=zero, tmin=zero, tmax=zero,
+                    bad=torch.zeros(C, dtype=torch.bool, device=dev),
+                    iters=torch.zeros(C, dtype=torch.int32, device=dev),
+                    total=zero)
 
-        z = stereographic_project(x, loc, sigma_sqrt)
-        pe_t = transformed_pe(z)
-        v = draws.velocity
-        v = v - torch.sum(v * z, dim=-1, keepdim=True) * z
+    def begin(p: dict, velocity, u_level, u_theta) -> dict:
+        """Before the loop: the whitened projection, the tangent velocity,
+        the slice level, the first angle and its test."""
+        s = p["s"]
+        loc, scale = s.adapt_state
+        sig = (scale + eps * torch.eye(d, device=scale.device)) * (d ** 0.5)
+        z = stereographic_project(s.position, loc, sig)
+        pe_t = transformed_pe(z, loc, sig)
+        v = velocity - torch.sum(velocity * z, dim=-1, keepdim=True) * z
         v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
-        t_pe = pe_t - torch.log(draws.u_level)
+        theta = u_theta * TWO_PI
+        q = dict(p, sig=sig, z=z, v=v, t_pe=pe_t - torch.log(u_level),
+                 theta=theta, tmin=theta - TWO_PI, tmax=theta,
+                 iters=torch.zeros_like(p["iters"]))
+        q["bad"] = is_bad(q, theta)
+        return q
 
-        z_new, trips = _shrinkage_batched(
-            z, v, t_pe, transformed_pe, config.eps,
-            config.max_shrinkage_iters, draws.u_theta, u_shrink,
-        )
-        x_new = stereographic_inverse(z_new, loc, sigma_sqrt)
+    def active(p: dict) -> Tensor:
+        return p["bad"] & (p["iters"] < max_iters)
+
+    def trip(p: dict, u: Tensor) -> dict:
+        """One trip of the great-circle shrinkage under the active mask:
+        the bracket shrinks toward the rejected angle, a new angle is
+        drawn in it and tested; a landed or bailed chain keeps all."""
+        act = active(p)
+        theta = p["theta"]
+        tmin = torch.where(act & (theta < 0.0), theta, p["tmin"])
+        tmax = torch.where(act & (theta >= 0.0), theta, p["tmax"])
+        theta = torch.where(act, tmin + u * (tmax - tmin), theta)
+        return dict(p, tmin=tmin, tmax=tmax, theta=theta,
+                    iters=p["iters"] + act.to(torch.int32),
+                    bad=torch.where(act, is_bad(p, theta), p["bad"]))
+
+    def end(p: dict) -> dict:
+        """After the loop: the bail-out to θ = 0, the inverse map, the
+        potential and the guarded adaptation (K1); adds the step's trips
+        to ``total``."""
+        state, iters = p["s"], p["iters"]
+        loc, scale = state.adapt_state
+        theta = torch.where(iters >= max_iters,
+                            torch.zeros_like(p["theta"]), p["theta"])
+        z_new = p["z"] * torch.cos(theta)[:, None] \
+            + p["v"] * torch.sin(theta)[:, None]
+        x_new = stereographic_inverse(z_new, loc, p["sig"])
         pe_new = nan_to_inf(potential(x_new))
-
         if config.adapt:
             _, gamma = adaptation_lr(state.i, config.num_warmup,
                                      config.lr_decay)
             delta = x_new - loc
             loc_new = loc + gamma * delta
-            scale_new = adaptive_scale_update(scale, delta, gamma.expand(C))
+            scale_new = adaptive_scale_update(scale, delta,
+                                              gamma.expand(x_new.shape[0]))
             as_change = torch.linalg.vector_norm(loc_new - loc, dim=-1) \
                 + torch.linalg.matrix_norm(scale_new - scale)
             adapt_new = ASSSAdaptState(loc_new, scale_new)
         else:
             adapt_new = state.adapt_state
             as_change = torch.zeros_like(pe_new)
+        new_state = ASSSState(i=state.i + 1, position=x_new,
+                              potential_energy=pe_new,
+                              adapt_state=adapt_new, as_change=as_change)
+        return dict(p, s=new_state,
+                    total=p["total"] + iters.to(torch.float32))
 
-        new_state = ASSSState(
-            i=state.i + 1,
-            position=x_new,
-            potential_energy=pe_new,
-            adapt_state=adapt_new,
-            as_change=as_change,
-        )
-        return new_state, trips
+    def generator_draws(p: dict, generator) -> tuple:
+        C, dev = p["s"].position.shape[0], p["s"].position.device
+        return (torch.randn((C, d + 1), generator=generator, device=dev),
+                torch.rand((C,), generator=generator, device=dev),
+                torch.rand((C,), generator=generator, device=dev))
+
+    def trip_draw(p: dict, generator) -> Tensor:
+        return torch.rand((p["s"].position.shape[0],), generator=generator,
+                          device=p["s"].position.device)
+
+    parts = StepParts(
+        work=work,
+        begin=lambda p, g: begin(p, *generator_draws(p, g)),
+        trip=lambda p, g: trip(p, trip_draw(p, g)),
+        running=lambda p: torch.any(active(p)),
+        end=end, block=lambda: SHRINK_TRIPS, count=_count)
+
+    def _steps(state: ASSSState, n_steps: int, generator,
+               draws: Optional[Sequence[ASSSDraws]]) -> dict:
+        """``n_steps`` lockstep transitions in a Python loop over the same
+        blocks of trips as the graph driver, with the same draws; the
+        active mask is read on the host once per block.  Injected draws
+        (one :class:`ASSSDraws` per step): a masked trip past the last row
+        of ``u_shrink`` reads nothing, an active one raises."""
+        if draws is None and generator is None:
+            raise ValueError("a torch.Generator or injected draws are "
+                             "needed")
+        p = work(state)
+        for t in range(n_steps):
+            if draws is None:
+                p = parts.begin(p, generator)
+            else:
+                dr = draws[t]
+                p = begin(p, dr.velocity, dr.u_level, dr.u_theta)
+                rows = dr.u_shrink.shape[0]
+                blank = torch.zeros_like(p["theta"])
+            k = 0
+            while bool(parts.running(p)):
+                for _ in range(SHRINK_TRIPS):
+                    if draws is None:
+                        p = parts.trip(p, generator)
+                    else:
+                        p = trip(p, dr.u_shrink[k] if k < rows else blank)
+                    k += 1
+                _count(SHRINK_TRIPS)
+                if draws is not None and k > rows \
+                        and int(p["iters"].max()) > rows:
+                    raise ValueError(f"injected u_shrink has {rows} rows; "
+                                     f"trip {rows} needs more")
+            p = end(p)
+        return p
 
     def step(state: ASSSState, generator: Optional[torch.Generator] = None,
              draws: Optional[ASSSDraws] = None) -> ASSSState:
-        return _transition(state, generator, draws)[0]
+        return _steps(state, 1, generator,
+                      None if draws is None else [draws])["s"]
 
     def probe(state: ASSSState, n_steps: int,
               generator: Optional[torch.Generator] = None,
-              draws: Optional[Sequence[ASSSDraws]] = None):
+              draws: Optional[Sequence[ASSSDraws]] = None, *,
+              eager: bool = False):
         """Advance ``n_steps`` lockstep transitions exactly as ``step``
         does and return (final_state, per-chain MEAN shrinkage trips per
-        transition); ``draws`` holds one :class:`ASSSDraws` per step."""
-        total = torch.zeros(state.position.shape[0],
-                            device=state.position.device)
-        for t in range(n_steps):
-            state, trips = _transition(
-                state, generator, None if draws is None else draws[t])
-            total = total + trips.to(torch.float32)
-        return state, total / float(n_steps)
+        transition); ``draws`` holds one :class:`ASSSDraws` per step.  On
+        the card with a generator the steps replay from CUDA graphs
+        (:class:`~adaptive_mcmc_tpu_torch.infer.mcmc.LockstepGraph`) unless
+        ``eager``."""
+        if draws is None and generator is not None and not eager \
+                and state.position.is_cuda:
+            p = LockstepGraph(parts, generator, "asss.probe").advance(
+                state, n_steps)
+        else:
+            p = _steps(state, n_steps, generator, draws)
+        return p["s"], p["total"] / float(n_steps)
 
     def _as_tuple(state: ASSSState):
         a = state.adapt_state
@@ -324,4 +388,5 @@ def asss(target, config: ASSSConfig = ASSSConfig()) -> Kernel:
         collect_n=collect_n,
         collect_fields=("position", "potential_energy", "as_change"),
         probe=probe,
+        step_parts=parts,
     )

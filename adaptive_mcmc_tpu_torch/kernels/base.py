@@ -11,7 +11,7 @@ also accepts injected draws so that tests can replay another stream.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -46,6 +46,37 @@ class Kernel:
     # the host, no shape that depends on data.  ``run_mcmc`` then captures
     # blocks of steps into a CUDA graph when the state is on a CUDA device.
     graph_step: bool = False
+    # Optional :class:`StepParts`: a ``step`` whose inner loop runs until
+    # every chain is done (ASSS's shrinkage), in the parts that
+    # ``infer.mcmc.LockstepGraph`` replays from CUDA graphs on the card.
+    step_parts: Any = None
+
+
+class StepParts(NamedTuple):
+    """A lockstep step in parts, over a dict ``p`` that holds the state
+    under ``"s"`` and the tensors of the step's inner loop beside it.  The
+    step is ``begin``, then blocks of ``block()`` masked ``trip`` calls
+    until ``running`` is false, then ``end``; a trip after a chain is done
+    changes nothing for it, so the blocks draw past the last trip without
+    changing the result.
+
+    * ``work(state) -> p``: the dict, the loop's tensors zeroed;
+    * ``begin(p, generator) -> p``: the step's draws and what comes before
+      the loop;
+    * ``trip(p, generator) -> p``: one masked trip of every chain;
+    * ``running(p)``: a 0-d bool tensor, whether a chain is still active;
+    * ``end(p) -> p``: what comes after the loop, the new state in
+      ``"s"``;
+    * ``block()``: trips per block, read at each call;
+    * ``count(n)``: told the trips of each block run."""
+
+    work: Callable[..., Any]
+    begin: Callable[..., Any]
+    trip: Callable[..., Any]
+    running: Callable[..., Any]
+    end: Callable[..., Any]
+    block: Callable[[], int]
+    count: Callable[[int], None]
 
 
 def nan_to_inf(pe: Tensor) -> Tensor:

@@ -49,7 +49,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (blocks of GRAPH_ITERS iterations, step_n keeping its graph) against
    the same blocks run eagerly, bit for bit (two step_n calls, then
    collect_n with frames; final state, frames, the generator's next
-   draws) on eight schools at 4096 chains and diamonds at 1024;
+   draws) on eight schools at 4096 chains and diamonds at 1024; then ASSS's
+   lockstep step from its CUDA graphs (the part before the shrinkage loop,
+   blocks of kernels/asss.py SHRINK_TRIPS trips, the part after it)
+   against the same blocks run eagerly, bit for bit: probe of 250 steps on
+   eight schools at 4096 chains with adaptation (final state, mean trips
+   per chain, the generator's next draws; K1 launched once per step), and
+   a frozen seeded sample_pnx on the mixture at 100000 chains (n = 5)
+   against eager=True and the per-trip loop (SHRINK_TRIPS 1); the trial
+   of SHRINK_TRIPS (4, 8, 16, 32: host ms per step on eight schools and
+   per step of the frozen rollout at d = 1);
 7. the slice: MCMC(asss(diamonds(), ASSSConfig(fused=True))) and
    MCMC(arwmh(diamonds(), ARWMHConfig(fused=True))) at 1024 chains through
    K3 and K2, against the PosteriorDB gold draws; kidiq through K3 and K2
@@ -121,12 +130,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    chunk and resumed against run_mcmc bit for bit, and
    collect_states_logscale(n_pow=4)'s grid; the port's bench
    (adaptive_mcmc_tpu_torch.bench.main(): five numeric cells);
-   one step of entry(); then the host time per step, kernels per step
+   one step of entry(); the 16 figure families' data
+   (adaptive_mcmc_tpu_torch.analysis.figures, --data-only) at figures.py's
+   default sizes on the card: seconds per family, peak device memory,
+   every sample_pnx rollout on the CUDA device, K1's launches from
+   adaptation_drift, the theory gates (figures.theory_gates: acceptance
+   falling with the step size through 0.234, invariance KS under 1.5 x
+   its null, frozen ASSS's τ_x(P) on N(0, 1) at most 1 within its
+   Monte-Carlo error, E[x_next] on N(0, 1) shrinking toward 0 with n);
+   artifact_figures' data over the harness's runs (at the harness's end);
+   then the host time per step, kernels per step
    (the six largest by device time) and device idle share of the ARWMH
    lockstep step and the SA step, per trip of the NUTS machine, eager
    and from the graph, per auction round from the graph at each block
-   width, and per step (per iteration) of the ASSS machine from its graph
-   beside the eager machine's row of PERF.md §5
+   width, per step (per iteration) of the ASSS machine from its graph
+   beside the eager machine's row of PERF.md §5, of ASSS's lockstep step
+   eagerly and from its graphs beside PR 2's row, and of the frozen ASSS
+   rollout step at 100000 chains eagerly and from its graphs beside PR 9's
    (torch.profiler; last, because the profiler once on slows every later
    launch of the process);
 9. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
@@ -194,9 +214,9 @@ NUTS_CHAINS = 1024
 NUTS_CHECK_WARMUP, NUTS_CHECK_STEPS = 100, 50                   # time
 NUTS_CHECK_FRAMES, NUTS_CHECK_THINNING = 25, 2                  # time
 NUTS_WARMUP, NUTS_SAMPLES = 700, 500
-NUTS_KIDIQ_WARMUP, NUTS_KIDIQ_SAMPLES = 500, 500
+NUTS_KIDIQ_WARMUP, NUTS_KIDIQ_SAMPLES = 250, 250               # time
 NUTS_LOG_TAU_TOL, NUTS_SD_LOG_TAU_TOL, NUTS_MU_TOL = 0.045, 0.06, 0.25
-NUTS_BLOCK_TRIAL, NUTS_TRIAL_STEPS = (8, 16, 32, 64), 100
+NUTS_BLOCK_TRIAL, NUTS_TRIAL_STEPS = (8, 16, 32, 64), 50        # time
 # short profiled windows: torch.profiler's processing grows with its events,
 # some 360 kernels per trip (a 50-transition window took over a minute)
 NUTS_PROFILE_STEPS = {"eager": 2, "graph": 5}                  # time
@@ -232,12 +252,35 @@ ASSS_PROFILE_WARMUP, ASSS_PROFILE_STEPS = 100, 20                # time
 # the eager machine's row of PERF.md §5 (eight schools, 4096 chains)
 ASSS_EAGER_ROW = ("9.2725 ms per step, 2.41 iterations per step, 231.4 "
                   "kernels and 338.98 µs busy per iteration, idle 0.9119")
+# ASSS's lockstep step from its CUDA graphs against its eager blocks: probe
+# on eight schools with adaptation (K1 chains first), and the frozen seeded
+# rollout of the figures on the mixture (probes x samples, steps)
+LOCKSTEP_CHECK_STEPS = 250
+ROLLOUT_PROBES, ROLLOUT_SAMPLES, ROLLOUT_N = 100, 1000, 5
+# the trial of kernels/asss.py SHRINK_TRIPS (shrinkage trips per block):
+# eight schools (d = 10) at N_CHAINS chains and the figures' frozen
+# rollouts (d = 1) at ROLLOUT_PROBES x ROLLOUT_SAMPLES chains
+SHRINK_TRIAL, SHRINK_TRIAL_STEPS, SHRINK_TRIAL_ROLLOUTS = (4, 8, 16, 32), 50, 5
+# the profiled windows of ASSS's lockstep step (steps) beside PR 2's eager
+# row, and of the frozen ASSS rollout step at 100000 chains beside PR 9's
+# (torch.profiler's processing grows with its events, some 1300 kernels a
+# step: 20 steps and 5 rollouts give the same figures per step)
+ASSS_LOCKSTEP_PROFILE_STEPS = {"eager": 20, "graph": 20}         # time
+ROLLOUT_PROFILED = 5                                            # time
+ASSS_LOCKSTEP_PR2_ROW = ("19.7806 ms per step, 1337.6 kernels and 1921.79 "
+                         "µs busy per step, idle 0.9028 (PR 2, eager)")
+ROLLOUT_PR9_ROW = "9.7-13.9 ms per step (PR 9, eager)"
+# the figure families' data at figures.py's default sizes (--data-only)
+FIGURES_DIR = Path(__file__).resolve().parent / "mcmc_runs" \
+    / "chip_smoke_figures"
 # the experiment harness: every w_eval cell at 100 seeds on the posterior's
 # own d and data, its iteration budget cut by the CLI's --scale (time);
 # NUTS fanned out 16 ways as scripts/run_full_sweeps.py does; one lr_decay
 # cell; evaluate_run on the diamonds cells (exact W on 8 seeds in one
 # batch of 8, the Hungarian check on seeds 0 and 1; no Sinkhorn column,
-# 15 s a cell, which the diagnostics phase times at this shape)
+# 15 s a cell, which the diagnostics phase times at this shape).  A scale
+# stays only where its gate held on the card: diamonds NUTS at 0.112 left
+# 2 of 100 chains 3 gold sd off (sd ratio up to 1.75), at 0.16 none
 HARNESS_SEEDS = 100
 HARNESS_SCALES = {                                              # time
     ("eight_schools", "arwmh"): 0.1,
@@ -246,7 +289,7 @@ HARNESS_SCALES = {                                              # time
     ("eight_schools", "sa"): 0.1,
     ("kidiq", "arwmh"): 0.2,
     ("kidiq", "asss"): 0.2,
-    ("kidiq", "nuts"): 0.128,
+    ("kidiq", "nuts"): 0.096,
     ("diamonds", "arwmh"): 0.001,
     ("diamonds", "asss"): 0.0005,
     ("diamonds", "nuts"): 0.16,
@@ -752,17 +795,17 @@ def profile_lockstep(kernel, label: str, n_chains: int, steps: int,
     window's host time, which is the idle share without the profiler if the
     kernels take the same time in both."""
     from torch.profiler import ProfilerActivity, profile
-    from adaptive_mcmc_tpu_torch.infer.mcmc import StepBlocks
+    from adaptive_mcmc_tpu_torch.infer.mcmc import advancer
     name = "eager" if eager else "graph"
     g = torch.Generator("cuda").manual_seed(21)
     state = kernel.init(g, n_chains=n_chains)
-    if eager:
-        def advance(n):
-            nonlocal state
-            for _ in range(n):
-                state = kernel.step(state, g)
-    else:
-        advance = StepBlocks(kernel, g, state, THINNING).advance
+    # the CUDA graph run_mcmc takes: StepBlocks of THINNING steps, or the
+    # lockstep parts of a step with an inner loop (ASSS)
+    drive = advancer(kernel, g, state, THINNING, eager)
+
+    def advance(n):
+        nonlocal state
+        state = drive(state, n)
     advance(10 * THINNING)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1594,13 +1637,13 @@ def check_contraction(amt, card: str) -> None:
     frozen = {"ARWMH": an.frozen_arwmh(t1, device=dev),
               "ASSS": an.frozen_asss(t1, device=dev)}
     Xf = torch.linspace(-2.5, 2.5, FIG_POINTS, device=dev)[:, None]
-    k, adapt = frozen["ARWMH"]
-    graph_ms = rollout_ms(amt, k, adapt, Xf, eager=False)
-    eager_ms = rollout_ms(amt, k, adapt, Xf, eager=True)
-    asss_ms = rollout_ms(amt, *frozen["ASSS"], Xf, eager=True)
+    ms = {(name, eager): rollout_ms(amt, *frozen[name], Xf, eager=eager)
+          for name in frozen for eager in (False, True)}
     print(f"frozen rollout step at {FIG_POINTS * FIG_SAMPLES} chains, host "
-          f"ms: ARWMH from the graph {graph_ms:.4f}, eagerly {eager_ms:.4f}; "
-          f"ASSS (eager step) {asss_ms:.4f} on {card}")
+          f"ms: ARWMH from the graph {ms[('ARWMH', False)]:.4f}, eagerly "
+          f"{ms[('ARWMH', True)]:.4f}; ASSS from its graphs "
+          f"{ms[('ASSS', False)]:.4f}, eagerly {ms[('ASSS', True)]:.4f} "
+          f"({ROLLOUT_PR9_ROW}) on {card}")
     for name, (k, adapt) in frozen.items():
         (tau, _, _), secs = timed(lambda: co.compute_wasserstein_contraction(
             co.make_sample_px(k, adapt), g, Xf,
@@ -2058,8 +2101,9 @@ def run_harness(amt, k1, counters, card: str):
     gold = gold_draws(amt)
     for kernel in ("arwmh", "asss", "nuts"):
         timings = {}
+        npz = npzs[("diamonds", kernel)]
         table = evaluate.evaluate_run(
-            npzs[("diamonds", kernel)], gold,
+            npz, gold, npz.parent / f"eval_{kernel}.csv",
             exact_wasserstein_seeds=HARNESS_EVAL_SEEDS,
             exact_w_batch=HARNESS_EVAL_BATCH, sinkhorn=False, timings=timings)
         w = table["wasserstein"][:HARNESS_EVAL_SEEDS]
@@ -2072,9 +2116,256 @@ def run_harness(amt, k1, counters, card: str):
               f"(exact W on {HARNESS_EVAL_SEEDS} seeds, batch "
               f"{HARNESS_EVAL_BATCH}, the Hungarian check held): {cols}; "
               f"seconds per column: {secs} on {card}")
+    run_artifact_figures([out_dir / "default", out_dir / "the_ASSS_machine",
+                          out_dir / "through_K2"], card)
     shutil.rmtree(out_dir, ignore_errors=True)
     w_eval_fused_times(amt, card)
     return first, last, fused_launches
+
+
+# ---------------------------------------------------------------------------
+# ASSS's lockstep step from its CUDA graphs, and the figure families.
+# ---------------------------------------------------------------------------
+
+def check_asss_lockstep_graph(amt, k1, card: str) -> int:
+    """ASSS's lockstep step from its CUDA graphs (the part before the
+    shrinkage loop, a block of SHRINK_TRIPS trips, the part after it)
+    against the same blocks run eagerly, bit for bit: probe of
+    LOCKSTEP_CHECK_STEPS steps on eight schools at N_CHAINS chains with
+    adaptation (final state, mean trips per chain, the generator's next
+    draws; K1 chains first once per step in both), then a frozen seeded
+    sample_pnx on the mixture (captured, then replayed) against eager=True
+    and against the eager loop with SHRINK_TRIPS = 1, which is the step's
+    loop before blocks (a host read per trip; tests/
+    test_torch_asss_lockstep_graph.py holds the two equal).  Returns the
+    graph run's K1 launches."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors
+    ta = importlib.import_module("adaptive_mcmc_tpu_torch.kernels.asss")
+    t = amt.eight_schools_noncentered()
+    k = amt.asss(t, amt.ASSSConfig(num_warmup=ASSS_PROFILE_WARMUP))
+    init = k.init(torch.Generator("cuda").manual_seed(13), n_chains=N_CHAINS)
+    runs = {}
+    for eager in (True, False):
+        k1.launches = 0
+        g = torch.Generator("cuda").manual_seed(14)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, trips = k.probe(init, LOCKSTEP_CHECK_STEPS, g, eager=eager)
+        torch.cuda.synchronize()
+        runs[eager] = ([*state_tensors(s), trips,
+                        torch.rand(8, generator=g, device="cuda")],
+                       k1.launches, time.perf_counter() - t0)
+    (e, e_k1, e_s), (gr, g_k1, g_s) = runs[True], runs[False]
+    n = LOCKSTEP_CHECK_STEPS
+    require(e_k1 == g_k1 == n,
+            f"ASSS lockstep K1 launches: eager {e_k1}, graph {g_k1}, {n}")
+    require(all(torch.equal(a, b) for a, b in zip(e, gr)),
+            "ASSS lockstep: the graph run differs from the eager blocks")
+    require(int(gr[0]) == n and bool(torch.isfinite(gr[1]).all()),
+            "ASSS lockstep: step counter or positions")
+    print(f"ASSS lockstep step from its CUDA graphs equals the eager blocks "
+          f"bit for bit: probe of {n} steps on eight schools at {N_CHAINS} "
+          f"chains with adaptation (final state, mean trips per chain "
+          f"{float(gr[-2].mean()):.4f}, the generator's next draws); K1 "
+          f"launches {g_k1} = steps in both; {e_s * 1e3 / n:.4f} ms per step "
+          f"eagerly, {g_s * 1e3 / n:.4f} from the graphs (capture "
+          f"included; SHRINK_TRIPS {ta.SHRINK_TRIPS}) on {card}")
+    kf, adapt = amt.analysis.frozen_asss(amt.gaussian_mixture_1d(),
+                                         device="cuda")
+    X = torch.linspace(-2.5, 2.5, ROLLOUT_PROBES, device="cuda")[:, None]
+
+    def rollout(eager: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = amt.sample_pnx(kf, 21, X, adapt, n=ROLLOUT_N,
+                             n_samples=ROLLOUT_SAMPLES, eager=eager)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (captured, c_s), (replayed, r_s) = rollout(False), rollout(False)
+    eager, e_s = rollout(True)
+    saved, ta.SHRINK_TRIPS = ta.SHRINK_TRIPS, 1
+    try:
+        per_trip, p_s = rollout(True)
+    finally:
+        ta.SHRINK_TRIPS = saved
+    require(torch.equal(captured, eager) and torch.equal(replayed, eager),
+            "seeded frozen ASSS: the graph rollout differs from the eager "
+            "blocks")
+    require(torch.equal(per_trip, eager),
+            "seeded frozen ASSS: the blocked rollout differs from the "
+            "per-trip loop")
+    C = ROLLOUT_PROBES * ROLLOUT_SAMPLES
+    print(f"seeded frozen ASSS sample_pnx on the mixture at {C} chains, n = "
+          f"{ROLLOUT_N}: from the graphs (captured, then replayed) equals "
+          f"the eager blocks and the eager per-trip loop (SHRINK_TRIPS 1) "
+          f"bit for bit; s per call: captured {c_s:.3f}, replayed "
+          f"{r_s:.3f}, eager blocks {e_s:.3f}, per-trip loop {p_s:.3f} on "
+          f"{card}")
+    return g_k1
+
+
+def shrink_trial(amt, card: str) -> None:
+    """Host ms per step of ASSS's lockstep step from its CUDA graphs for
+    each SHRINK_TRIPS of SHRINK_TRIAL: eight schools at N_CHAINS chains
+    with adaptation (LockstepGraph over SHRINK_TRIAL_STEPS steps after a
+    capturing call; trips run per step and probe's mean trips per chain)
+    and the frozen seeded rollout of the figures (d = 1, n = ROLLOUT_N,
+    SHRINK_TRIAL_ROLLOUTS calls after a capturing one)."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import LockstepGraph
+    ta = importlib.import_module("adaptive_mcmc_tpu_torch.kernels.asss")
+    t = amt.eight_schools_noncentered()
+    k = amt.asss(t, amt.ASSSConfig(num_warmup=ASSS_PROFILE_WARMUP))
+    start = k.init(torch.Generator("cuda").manual_seed(15),
+                   n_chains=N_CHAINS)
+    kf, adapt = amt.analysis.frozen_asss(amt.gaussian_mixture_1d(),
+                                         device="cuda")
+    X = torch.linspace(-2.5, 2.5, ROLLOUT_PROBES, device="cuda")[:, None]
+    saved = ta.SHRINK_TRIPS
+    rows = []
+    try:
+        for block in SHRINK_TRIAL:
+            ta.SHRINK_TRIPS = block
+            drive = LockstepGraph(k.step_parts,
+                                  torch.Generator("cuda").manual_seed(16),
+                                  "asss.step")
+            p = drive.advance(start, 5)
+            torch.cuda.synchronize()
+            trips0, t0 = ta.trips, time.perf_counter()
+            p = drive.advance(p["s"], SHRINK_TRIAL_STEPS)
+            torch.cuda.synchronize()
+            ms10 = (time.perf_counter() - t0) * 1e3 / SHRINK_TRIAL_STEPS
+            run10 = (ta.trips - trips0) / SHRINK_TRIAL_STEPS
+            mean10 = float(p["total"].mean()) / SHRINK_TRIAL_STEPS
+            amt.sample_pnx(kf, 0, X, adapt, n=ROLLOUT_N,
+                           n_samples=ROLLOUT_SAMPLES)
+            torch.cuda.synchronize()
+            trips0, t0 = ta.trips, time.perf_counter()
+            for s in range(1, SHRINK_TRIAL_ROLLOUTS + 1):
+                amt.sample_pnx(kf, s, X, adapt, n=ROLLOUT_N,
+                               n_samples=ROLLOUT_SAMPLES)
+            torch.cuda.synchronize()
+            steps1 = SHRINK_TRIAL_ROLLOUTS * ROLLOUT_N
+            ms1 = (time.perf_counter() - t0) * 1e3 / steps1
+            run1 = (ta.trips - trips0) / steps1
+            rows.append((block, ms10, ms1))
+            print(f"SHRINK_TRIPS trial, {block} trips per block: eight "
+                  f"schools at {N_CHAINS} chains {ms10:.4f} ms per step "
+                  f"({run10:.1f} trips run per step, mean trips per chain "
+                  f"{mean10:.4f}); frozen rollout on the mixture at "
+                  f"{ROLLOUT_PROBES * ROLLOUT_SAMPLES} chains {ms1:.4f} ms "
+                  f"per step ({run1:.1f} trips run per step) on {card}")
+    finally:
+        ta.SHRINK_TRIPS = saved
+    best10 = min(rows, key=lambda r: r[1])[0]
+    best1 = min(rows, key=lambda r: r[2])[0]
+    print(f"SHRINK_TRIPS trial: fastest at d = 10 {best10}, at d = 1 "
+          f"{best1}; the kernel's SHRINK_TRIPS is {saved}")
+
+
+def profile_asss_lockstep(amt, card: str) -> None:
+    """ASSS's lockstep step (step_n=None) eagerly and from its CUDA graphs
+    through profile_pair, beside PR 2's eager row."""
+    k = dataclasses.replace(
+        amt.asss(amt.eight_schools_noncentered(),
+                 amt.ASSSConfig(num_warmup=NUM_WARMUP)),
+        step_n=None, collect_n=None)
+    profile_pair("ASSS lockstep", k, N_CHAINS, ASSS_LOCKSTEP_PROFILE_STEPS,
+                 card)
+    print(f"ASSS lockstep step: PR 2's eager row at {N_CHAINS} chains: "
+          f"{ASSS_LOCKSTEP_PR2_ROW}")
+
+
+def profile_asss_rollout(amt, card: str) -> None:
+    """The frozen ASSS rollout step of the diagnostics (N(0, 1), FIG_POINTS
+    x FIG_SAMPLES chains, n = 1), eagerly and from its CUDA graphs: host
+    ms per step over DIAG_TIMED_ROLLOUTS calls (no profiler), then kernels,
+    device busy and idle share per step over ROLLOUT_PROFILED calls under
+    torch.profiler; beside PR 9's eager row."""
+    from torch.profiler import ProfilerActivity, profile
+    kf, adapt = amt.analysis.frozen_asss(amt.std_normal(1), device="cuda")
+    X = torch.linspace(-2.5, 2.5, FIG_POINTS, device="cuda")[:, None]
+    n = ROLLOUT_PROFILED
+    out = {}
+    for eager in (True, False):
+        host_ms = rollout_ms(amt, kf, adapt, X, eager)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, secs = timed(lambda: [amt.sample_pnx(
+                kf, s, X, adapt, n=1, n_samples=FIG_SAMPLES, eager=eager)
+                for s in range(n)])
+        name = "eager" if eager else "graph"
+        n_kernels, busy_us = device_activity(
+            prof, f"frozen ASSS rollout {name}", n, "step")
+        traced_ms = secs * 1e3 / n
+        out[eager] = (host_ms, traced_ms, n_kernels / n, busy_us / n,
+                      1.0 - busy_us / n / (traced_ms * 1e3))
+        print(f"frozen ASSS rollout step {name} at {FIG_POINTS * FIG_SAMPLES}"
+              f" chains: host {host_ms:.4f} ms ({traced_ms:.4f} under the "
+              f"profiler), kernels {n_kernels / n:.1f}, device busy "
+              f"{busy_us / n:.2f} µs, idle share {out[eager][4]:.4f} in the "
+              f"profiled window on {card}")
+    print(f"frozen ASSS rollout step, eager -> graph: host "
+          f"{out[True][0]:.4f} -> {out[False][0]:.4f} ms, kernels "
+          f"{out[True][2]:.1f} -> {out[False][2]:.1f}, idle share "
+          f"{out[True][4]:.4f} -> {out[False][4]:.4f}; {ROLLOUT_PR9_ROW}")
+
+
+def run_figures(amt, counters, card: str) -> int:
+    """The 16 families' data (analysis.figures, --data-only) on the card at
+    figures.py's default sizes into FIGURES_DIR: seconds per family, the
+    peak device memory, every sample_pnx rollout on the CUDA device, K1
+    launched (adaptation_drift) and K2/K3 not, and the theory gates
+    (figures.theory_gates).  Returns K1's launches."""
+    import shutil
+    F = importlib.import_module("adaptive_mcmc_tpu_torch.analysis.figures")
+    im = importlib.import_module("adaptive_mcmc_tpu_torch.infer.mcmc")
+    k1, k2, k3 = counters
+    shutil.rmtree(FIGURES_DIR, ignore_errors=True)
+    reset_launches(*counters)
+    im.rollout_devices.clear()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    seconds = F.main(FIGURES_DIR, device="cuda", data_only=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    require(list(seconds) == list(F.ALL_FIGURES), "figures: families")
+    data = {name: F.load_data(FIGURES_DIR / f"{name}.npz")
+            for name in F.ALL_FIGURES}
+    for name, secs in seconds.items():
+        size = (FIGURES_DIR / f"{name}.npz").stat().st_size
+        print(f"figures {name}: data in {secs:.3f} s ({size} bytes) on "
+              f"{card}")
+    devices = dict(im.rollout_devices)
+    require(devices.get("cpu", 0) == 0 and devices.get("cuda", 0) > 0,
+            f"figures: sample_pnx rollouts by device {devices}")
+    require(k1.launches > 0 and k2.launches == k3.launches == 0,
+            f"figures: K1 {k1.launches}, K2 {k2.launches}, K3 "
+            f"{k3.launches} launches")
+    for name, value, limit, held in F.theory_gates(data):
+        print(f"figures gate {name}: {value:.6g} against {limit:.6g}: "
+              f"{'held' if held else 'FAILED'}")
+        require(held, f"figures gate {name}: {value} against {limit}")
+    print(f"figures: 16 families in {sum(seconds.values()):.1f} s, peak "
+          f"device memory {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated), sample_pnx rollouts "
+          f"{devices}, K1 launches {k1.launches} (adaptation_drift), data "
+          f"in {FIGURES_DIR} on {card}")
+    return k1.launches
+
+
+def run_artifact_figures(runs: list, card: str) -> None:
+    """analysis.artifact_figures' data part on the card over the harness's
+    run roots; families without their artifacts are listed as skipped."""
+    A = importlib.import_module(
+        "adaptive_mcmc_tpu_torch.analysis.artifact_figures")
+    for root in runs:
+        t0 = time.perf_counter()
+        made, skipped = A.main(FIGURES_DIR / "artifacts", runs=root,
+                               device="cuda", data_only=True)
+        print(f"artifact figures over {root.name}: {len(made)} made, "
+              f"{len(skipped)} skipped (missing artifacts), "
+              f"{time.perf_counter() - t0:.3f} s on {card}")
 
 
 def layouts(amt, build, chains: dict) -> dict:
@@ -2224,6 +2515,13 @@ def main() -> int:
     asss_states = check_asss_graph(amt, k1, card)
     elapsed("the ASSS machine's graph")
 
+    # ASSS's lockstep step from its CUDA graphs against its eager blocks,
+    # and the trial of its shrinkage trips per block
+    reset_launches(*counters)
+    k1_lockstep = check_asss_lockstep_graph(amt, k1, card)
+    shrink_trial(amt, card)
+    elapsed("ASSS's lockstep graph and the SHRINK_TRIPS trial")
+
     # 7. the slice: diamonds through K3 and K2 with the gold check; kidiq
     # through K3 and K2 with its OLS check; centered eight schools through
     # K3 and K2
@@ -2309,6 +2607,10 @@ def main() -> int:
     check_entry()
     elapsed("the drivers, the bench and entry()")
 
+    # the 16 figure families' data at figures.py's sizes
+    k1_figures = run_figures(amt, counters, card)
+    elapsed("the figure families")
+
     # the lockstep steps under torch.profiler, after every timed path: once
     # the profiler has been on, every later launch of the process costs the
     # host more
@@ -2324,6 +2626,9 @@ def main() -> int:
     profile_auction(diag, card)
     for name, state in asss_states.items():
         profile_asss_machine(amt, name, state, card)
+    profile_asss_lockstep(amt, card)
+    profile_asss_rollout(amt, card)
+    elapsed("the profiled windows")
     print(f"NUTS trip, eager -> graph: host time "
           f"{prof[True]['host_ms']:.4f} -> {prof[False]['host_ms']:.4f} ms, "
           f"kernels {prof[True]['kernels']:.1f} -> "
@@ -2332,13 +2637,21 @@ def main() -> int:
           f"under the profiler")
 
     # 9. results
-    # K1's chains-first kernel ran the ARWMH lockstep path, the SA path and
-    # the harness's ARWMH and SA cells on their default drivers, its
-    # chains-last kernel the pipelined ASSS machine and the harness's ASSS
-    # cells on the machine and its machine lr_decay; K2 and K3 the
-    # harness's fused diamonds cells, K2 its lr_decay cell too
+    # K1's chains-first kernel ran the ARWMH lockstep path, ASSS's lockstep
+    # step (its run through K1 and its graph check), the SA path, the
+    # harness's ARWMH and SA cells on their default drivers and the
+    # figures' adaptation_drift, its chains-last kernel the pipelined ASSS
+    # machine and the harness's ASSS cells on the machine and its machine
+    # lr_decay; K2 and K3 the harness's fused diamonds cells, K2 its
+    # lr_decay cell too
+    k1_first = k1_main + k1_asss[True][1] + k1_lockstep + k1_sa \
+        + k1_harness[0] + k1_figures
+    print(f"launches: chol_update (chains first) {k1_first} = ARWMH "
+          f"lockstep {k1_main} + ASSS lockstep {k1_asss[True][1]} + its "
+          f"graph check {k1_lockstep} + SA {k1_sa} + harness "
+          f"{k1_harness[0]} + figures {k1_figures}")
     kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
-                            k1_main + k1_sa + k1_harness[0],
+                            k1_first,
                             lanes[("chol_update", "first")],
                             k1_res["first"]),
                kernel_entry("chol_update_cl", "chol_update.cu", K1_REPLACES,

@@ -894,3 +894,65 @@ def test_evaluate_run_on_the_card_matches_the_cpu(cuda, tmp_path):
     span = float(np.linalg.norm(ref.max(0) - ref.min(0))) * 2
     np.testing.assert_allclose(card["wasserstein"], cpu["wasserstein"],
                                atol=span / 300)
+
+
+# -- ASSS's lockstep step from CUDA graphs in blocks of shrinkage trips ----
+
+def test_asss_lockstep_run_from_the_graph_equals_the_eager_blocks(cuda):
+    """run_mcmc of ASSS's lockstep step (step_n=None) with adaptation at
+    1024 chains from the graphs and eagerly, one seed: draws, last state
+    and the generator's next draws bit for bit, K1 launched once per step
+    in both."""
+    t = amt.eight_schools_noncentered()
+    k = dataclasses.replace(amt.asss(t, amt.ASSSConfig(num_warmup=20)),
+                            step_n=None, collect_n=None)
+    init = k.init(torch.Generator("cuda").manual_seed(1), n_chains=1024)
+    runs = []
+    for eager in (True, False):
+        k1.launches = 0
+        g = torch.Generator("cuda").manual_seed(2)
+        s, ex, last = amt.run_mcmc(k, g, 20, 40, thinning=4, n_chains=1024,
+                                   init_state=init, eager=eager,
+                                   extra_fields=("as_change",))
+        runs.append([s, ex["as_change"], *state_tensors(last),
+                     torch.rand(4, generator=g, device="cuda"),
+                     k1.launches])
+    e, gr = runs
+    assert e[-1] == gr[-1] == 60
+    assert all(torch.equal(a, b) for a, b in zip(e[:-1], gr[:-1]))
+
+
+def test_asss_probe_and_seeded_rollout_from_the_graph(cuda):
+    """probe from the graphs equals probe(eager=True); a seeded frozen-ASSS
+    sample_pnx (captured, then replayed) equals its eager loop and runs
+    on the card."""
+    from adaptive_mcmc_tpu_torch.infer import mcmc as im
+
+    mix = amt.gaussian_mixture_1d()
+    k = amt.asss(mix, amt.ASSSConfig(adapt=False))
+    s0 = k.init(torch.Generator("cuda").manual_seed(0), n_chains=4096)
+    a = k.probe(s0, 6, torch.Generator("cuda").manual_seed(3))
+    b = k.probe(s0, 6, torch.Generator("cuda").manual_seed(3), eager=True)
+    assert torch.equal(a[1], b[1]) and torch.equal(a[0].position,
+                                                   b[0].position)
+    kf, adapt = amt.analysis.frozen_asss(mix, loc=1.0, device=cuda)
+    x = torch.linspace(-2, 2, 20, device=cuda)[:, None]
+    im.rollout_devices.clear()
+    g1 = amt.sample_pnx(kf, 5, x, adapt, n=4, n_samples=500)
+    g2 = amt.sample_pnx(kf, 5, x, adapt, n=4, n_samples=500)
+    e = amt.sample_pnx(kf, 5, x, adapt, n=4, n_samples=500, eager=True)
+    assert torch.equal(g1, e) and torch.equal(g2, e)
+    assert set(im.rollout_devices) == {"cuda"}
+
+
+def test_figure_data_on_the_card(cuda):
+    """Two families' data at small sizes on the card: every rollout on
+    the CUDA device, the theory gates of the invariance family held."""
+    from adaptive_mcmc_tpu_torch.analysis import figures as tf
+    from adaptive_mcmc_tpu_torch.infer import mcmc as im
+
+    im.rollout_devices.clear()
+    inv = tf.data_invariance(device="cuda", n=100_000)
+    tf.data_x_step(device="cuda", n_samples=2000, n_points=10)
+    assert set(im.rollout_devices) == {"cuda"}
+    assert all(g[3] for g in tf.theory_gates({"invariance": inv}))

@@ -1,5 +1,7 @@
 """The import rule of the PyTorch port: adaptive_mcmc_tpu_torch and
-chip_smoke.py import neither jax nor the JAX package adaptive_mcmc_tpu.
+chip_smoke.py import neither jax nor the JAX package adaptive_mcmc_tpu,
+and no module of the port loads matplotlib, pandas or seaborn when it is
+imported.
 Each of the port's packages and top modules is imported in a fresh
 interpreter, which must end with no such module loaded; and every .py file
 of the port and chip_smoke.py is read with ast for such imports, and for
@@ -25,6 +27,8 @@ MODULES = sorted(
     + [f"adaptive_mcmc_tpu_torch.experiments.{m}"
        for m in ("cli", "compare_wasserstein", "gold_spread", "lr_sweep",
                  "moments_parity", "sweep")]
+    + [f"adaptive_mcmc_tpu_torch.analysis.{m}"
+       for m in ("figures", "artifact_figures", "model_diagrams")]
     + [f"adaptive_mcmc_tpu_torch.{p.stem}" for p in PORT.glob("*.py")
        if p.stem != "__init__"])
 FORBIDDEN = ("jax", "jaxlib", "adaptive_mcmc_tpu")
@@ -40,6 +44,21 @@ def test_fresh_import_loads_no_jax(module):
             "print(sorted(m for m in sys.modules if m in %r or "
             "any(m.startswith(f + '.') for f in %r)))"
             % (module, FORBIDDEN, FORBIDDEN))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_modules_import_no_matplotlib():
+    """Every module above imports in one fresh interpreter without
+    loading matplotlib: the figure modules import it where they draw, so
+    they import on a machine without it (the card's)."""
+    code = ("import sys, importlib\n"
+            "for m in %r: importlib.import_module(m)\n"
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('matplotlib', 'pandas', 'seaborn')))"
+            % (MODULES,))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
