@@ -9,6 +9,11 @@
     python -m adaptive_mcmc_tpu_torch.experiments.cli summary \
         --target eight_schools --kernel nuts
 
+w_eval over several devices, one process each (``--device cpu``: gloo):
+
+    torchrun --nproc-per-node 2 -m adaptive_mcmc_tpu_torch.experiments.cli \
+        w_eval --target eight_schools --kernel arwmh --mesh-devices 2
+
 The commands, flags and ``--scale`` of ``adaptive_mcmc_tpu.experiments.cli``
 (``--scale`` shrinks the reference iteration budgets proportionally for
 smoke runs), plus ``--device``: every command runs on the card unless
@@ -47,7 +52,9 @@ def main(argv=None):
     p.add_argument("--n-pow", type=int, default=6)
     p.add_argument("--lr-decay", type=float, default=2.0 / 3.0)
     p.add_argument("--out-dir", default=OUT_ROOT)
-    p.add_argument("--mesh-devices", type=int, default=None)
+    p.add_argument("--mesh-devices", type=int, default=None,
+                   help="w_eval: split the chains over this many processes "
+                        "(run under torchrun --nproc-per-node N)")
     p.add_argument("--ref-kernel", default="nuts",
                    help="kernel used to generate gold-standard draws when "
                         "PosteriorDB is unavailable (evaluate command)")
@@ -61,8 +68,11 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     if args.command == "w_eval":
+        import torch.distributed as dist
+
         from adaptive_mcmc_tpu_torch.experiments.configs import RunConfig
         from adaptive_mcmc_tpu_torch.experiments.runner import run_w_eval
+        from adaptive_mcmc_tpu_torch.parallel import initialize_distributed
 
         budget = _scaled_budget(args.target, args.kernel, args.scale)
         cfg = RunConfig(
@@ -70,7 +80,13 @@ def main(argv=None):
             lr_decay=args.lr_decay, out_dir=args.out_dir,
             mesh_devices=args.mesh_devices, fused=args.fused, **budget,
         )
-        run_w_eval(cfg, device=args.device)
+        # under torchrun (WORLD_SIZE > 1) every process joins the group
+        joined = initialize_distributed(device=args.device) is not None
+        try:
+            run_w_eval(cfg, device=args.device)
+        finally:
+            if joined:
+                dist.destroy_process_group()
     elif args.command == "lr_decay":
         from adaptive_mcmc_tpu_torch.experiments.runner import run_lr_decay
 

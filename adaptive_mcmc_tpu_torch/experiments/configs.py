@@ -37,8 +37,8 @@ class RunConfig:
     fan_out: int = 1                  # post-warmup clones per chain (see
                                       # parallel.run.fan_state)
     seed0: int = 0
-    mesh_devices: Optional[int] = None  # None = the one device (the port
-                                        # runs one; more waits for A15)
+    mesh_devices: Optional[int] = None  # None = every process of the
+                                        # process group (one without one)
     out_dir: str = OUT_ROOT
     fused: Optional[bool] = None      # ARWMH/ASSS through K2/K3 (True), the
                                       # lockstep/machine (False), or the

@@ -21,6 +21,7 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from adaptive_mcmc_tpu_torch import kernels as _kernels
 from adaptive_mcmc_tpu_torch import models as _models
@@ -111,20 +112,39 @@ def build_kernel(name: str, target, *, lr_decay: float, num_warmup: int,
 def run_w_eval(config: RunConfig, verbose: bool = True, *,
                device=None) -> Path:
     """Run the w_eval experiment for one (target, kernel): all seeds as one
-    chain batch; save thinned draws + PE + the run's meta."""
+    chain batch; save thinned draws + PE + the run's meta.
+
+    ``config.mesh_devices`` splits the chains over that many processes of
+    the process group (``parallel.chain_mesh``; torchrun, one process per
+    device), padded to a multiple of it as in JAX: every process calls
+    this function, each samples its block, and the draws are gathered.
+    Rank 0 alone decides whether the cell is already complete (and tells
+    the others) and writes the npz and the manifest; the meta's
+    ``wall_seconds`` is the slowest process's.  A process outside a
+    sub-mesh returns None."""
     from adaptive_mcmc_tpu_torch.parallel import chain_mesh, run_mcmc_sharded
 
     out_dir = Path(config.out_dir) / "w_eval" / config.target
-    out_dir.mkdir(parents=True, exist_ok=True)
     out_path = out_dir / f"{config.kernel}.npz"
-    manifest = SweepManifest(out_dir / "manifest.json")
     key = f"{config.kernel}"
-    if manifest.is_done(key) and out_path.exists():
-        if verbose:
+    mesh = chain_mesh(config.mesh_devices, devices=[run_device(device)])
+    if not mesh.member:
+        return None
+    dev = mesh.device
+    lead = mesh.rank == 0
+    manifest = SweepManifest(out_dir / "manifest.json") if lead else None
+    done = torch.tensor(
+        int(lead and manifest.is_done(key) and out_path.exists()),
+        dtype=torch.int32, device=dev)
+    if mesh.size > 1:
+        # one decision for every process: a process that skipped would
+        # leave the others waiting in the gather
+        dist.broadcast(done, src=0, group=mesh.group)
+    if bool(done):
+        if verbose and lead:
             print(f"[skip] {out_path} already complete")
         return out_path
 
-    dev = chain_mesh(config.mesh_devices, devices=[run_device(device)])
     target = TARGETS[config.target]()
     kernel = build_kernel(
         config.kernel, target,
@@ -132,8 +152,8 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
         fused=config.fused,
     )
     n_chains = config.n_seeds * config.chains_per_seed
-    # one device: the chain count is already a multiple of the mesh size
-    n_padded = n_chains
+    # pad chains to a mesh multiple
+    n_padded = -(-n_chains // mesh.size) * mesh.size
 
     generator = torch.Generator(dev).manual_seed(config.seed0)
     synchronize(dev)
@@ -148,7 +168,7 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
         config.num_samples,
         thinning=config.thinning,
         n_chains=n_padded,
-        mesh=dev,
+        mesh=mesh,
         max_steps_per_call=max_steps,
         fan_out=F,
         extra_fields=("potential_energy", "as_change")
@@ -156,7 +176,13 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
         else ("potential_energy",),
     )
     synchronize(dev)
-    wall = time.perf_counter() - t0
+    wall = torch.tensor(time.perf_counter() - t0, dtype=torch.float64,
+                        device=dev)
+    if mesh.size > 1:
+        dist.all_reduce(wall, op=dist.ReduceOp.MAX, group=mesh.group)
+    wall = float(wall)
+    if not lead:
+        return out_path
 
     def _per_seed(a):
         """(frames, n_padded*F, ...) -> (seeds, frames*F, ...): clones are
@@ -177,6 +203,7 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
         # run_mcmc_sharded's choice.
         "driver": _driver_name(kernel, config.kernel),
     }
+    out_dir.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(
         out_path,
         samples=_per_seed(samples),  # (seeds, draws, dim)

@@ -624,7 +624,8 @@ def _rollout(kernel, C: int, n: int, device, generator) -> _Rollout:
 
 
 def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
-               n_samples: int = 1000, eager: bool = False) -> Tensor:
+               n_samples: int = 1000, eager: bool = False,
+               mesh=None) -> Tensor:
     """Monte-Carlo sampler of the n-step transition kernel P^n(x, ·) at a
     frozen adapt state: the engine of the contraction diagnostics.
 
@@ -649,15 +650,33 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
     between the replays of two steps), each kept for the next call with
     the same kernel, chain count, ``n`` and generator (or seed);
     ``eager=True`` asks for the Python loop, with the same draws.  NUTS
-    runs its eager ``step``."""
+    runs its eager ``step``.
+
+    ``mesh`` (``parallel.chain_mesh``) splits the chains over its
+    processes: the chain axis is padded to a multiple of the mesh size
+    (the padding repeats the last chain), each process rolls its block on
+    the mesh's device, and the blocks are gathered (one all-reduce) and
+    the padding dropped, on every process.  Rank 0 draws as one process
+    would; rank r > 0 from ``parallel.rank_seed(seed, r)`` for a seed
+    (reseeding from it per step as above), or from
+    ``parallel.rank_generator(generator, r)``, after which ``generator``
+    takes that generator's final state.  Each block therefore equals a
+    one-process ``sample_pnx`` of the block's chains as points
+    (``n_samples=1``) from the rank's seed or generator."""
     seeded = not isinstance(generator, torch.Generator)
-    seed = int(generator) if seeded else None
-    if seeded:
+    if mesh is not None:
+        device = mesh.device
+        if not mesh.member:
+            raise ValueError(f"rank {mesh.rank} is not on this mesh of "
+                             f"{mesh.size}")
+        if not seeded and generator.device != device:
+            raise ValueError(f"the generator is on {generator.device}, the "
+                             f"mesh on {device}")
+    elif seeded:
         device = x.device if isinstance(x, Tensor) else torch.device("cpu")
     else:
         device = generator.device
     x = torch.as_tensor(x, dtype=torch.float32).to(device)
-    rollout_devices[device.type] += 1
     n_points, d = x.shape
     C = n_points * n_samples
 
@@ -669,6 +688,44 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
 
     adapt_b = map_state(grid, adapt_state)
     pos = x[:, None, :].expand(n_points, n_samples, d).reshape(C, d)
+    if mesh is None or mesh.size == 1:
+        return _rollout_positions(kernel, generator, pos, adapt_b, n,
+                                  eager).reshape(n_points, n_samples, d)
+    from adaptive_mcmc_tpu_torch.parallel import (
+        chain_sharding,
+        gather_chains,
+        rank_generator,
+        rank_seed,
+    )
+
+    padded = -(-C // mesh.size) * mesh.size
+    rows = torch.arange(padded, device=device)[
+        chain_sharding(mesh, padded)].clamp(max=C - 1)
+    pos = pos[rows]
+    adapt_b = map_state(lambda a: a[rows], adapt_b)
+    if seeded:
+        out = _rollout_positions(kernel, rank_seed(int(generator),
+                                                   mesh.rank), pos,
+                                 adapt_b, n, eager)
+    else:
+        own = rank_generator(generator, mesh.rank)
+        out = _rollout_positions(kernel, own, pos, adapt_b, n, eager)
+        if own is not generator:
+            generator.set_state(own.get_state())
+    return gather_chains(out, mesh)[:C].reshape(n_points, n_samples, d)
+
+
+def _rollout_positions(kernel, generator, pos, adapt_b, n: int,
+                       eager: bool) -> Tensor:
+    """The frozen rollout of :func:`sample_pnx` from the chains ``pos``
+    (C, d) under the adapt state ``adapt_b`` (each leaf (C, ...)): the
+    positions after ``n`` steps.  ``generator`` is a ``torch.Generator``
+    or an int seed."""
+    seeded = not isinstance(generator, torch.Generator)
+    seed = int(generator) if seeded else None
+    device = pos.device
+    rollout_devices[device.type] += 1
+    C = pos.shape[0]
     entry = _rollout(kernel, C, n, device, None if seeded else generator)
     if seeded:
         generator = entry.generator.manual_seed(seed)
@@ -682,8 +739,7 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
         else:
             map_state(lambda dst, src: dst.copy_(src), entry.blocks.state,
                       state)
-        return entry.blocks.advance(n).position \
-            .reshape(n_points, n_samples, d).clone()
+        return entry.blocks.advance(n).position.clone()
     if frozen.step_parts is not None and not eager \
             and device.type == "cuda":
         if entry.lockstep is None:
@@ -694,7 +750,7 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
             generator.manual_seed(hash((seed, t)) & (2**63 - 1))
 
         return entry.lockstep.advance(state, n, reseed if seeded else None)[
-            "s"].position.reshape(n_points, n_samples, d)
+            "s"].position
     for t in range(n):
         if seeded and not frozen.graph_step:
             # a step whose draws depend on the data (ASSS's shrinkage trips,
@@ -702,7 +758,7 @@ def sample_pnx(kernel, generator, x, adapt_state, *, n: int = 1,
             # one rollout against another's: each step starts afresh
             generator.manual_seed(hash((seed, t)) & (2**63 - 1))
         state = frozen.step(state, generator)
-    return state.position.reshape(n_points, n_samples, d)
+    return state.position
 
 
 def get_init_adapt_state(kernel, generator, position=None,

@@ -139,6 +139,21 @@ Phases, in order; any failure ends the run with a non-zero exit:
    its null, frozen ASSS's τ_x(P) on N(0, 1) at most 1 within its
    Monte-Carlo error, E[x_next] on N(0, 1) shrinking toward 0 with n);
    artifact_figures' data over the harness's runs (at the harness's end);
+   the multi-process phase (A15; adaptive_mcmc_tpu_torch.parallel over
+   torch.distributed, each process this script started again with
+   --multi-process-worker, loading the libraries built above): (a) NCCL,
+   one process per card (one process, and on a machine of several cards
+   all of them): eight schools ARWMH through K1 from its CUDA graph at 4096
+   chains a process (500 + 1500 steps, thinning 10) and diamonds ASSS
+   through K3 at 1024 (1000 + 1000), each process's block of the gathered
+   run_mcmc_sharded draws equal bit for bit to a one-process run of it
+   from the rank's generator, the collectives over the mesh against one
+   process's on the gathered draws (rtol 1e-6), chain-iters/s per process;
+   (b) dryrun_multichip(2) over gloo on the card, then two gloo processes
+   sharing card 0: diamonds ARWMH through K2 at 512 chains a process, each
+   block against its one-process twin bit for bit, and a seeded frozen
+   ASSS sample_pnx at 100000 chains (n = 5) split over the two, each block
+   against the one-process eager rollout of it;
    then the host time per step, kernels per step
    (the six largest by device time) and device idle share of the ARWMH
    lockstep step and the SA step, per trip of the NUTS machine, eager
@@ -163,6 +178,7 @@ import importlib
 import json
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -325,6 +341,19 @@ HARNESS_EVAL_SEEDS, HARNESS_EVAL_BATCH = 8, 8
 # kidiq: every coordinate's mean within 0.1 posterior sd of the quadrature
 HARNESS_MU_TOL, HARNESS_LOG_TAU_TOL, HARNESS_KIDIQ_ERR = 0.2, 0.15, 0.1
 HARNESS_DIR = Path(__file__).resolve().parent / "mcmc_runs" / "chip_smoke"
+# the multi-process phase (A15): (a) NCCL, one process per card: eight
+# schools ARWMH through K1 (chains a process, warmup, samples, thinning)
+# and diamonds ASSS through K3; (b) gloo, two processes sharing card 0:
+# diamonds ARWMH through K2 and a seeded frozen ASSS sample_pnx at
+# ROLLOUT_PROBES x ROLLOUT_SAMPLES chains (n = ROLLOUT_N)
+MP_ARWMH = (4096, 500, 1500, 10)
+MP_ASSS_DIAMONDS = (1024, 1000, 1000, 10)                       # time
+MP_K2_DIAMONDS = (512, 1000, 1000, 10)                          # time
+# the collectives over the mesh against one process's on the gathered
+# draws: float32 sums taken in another order (exact on one process)
+MP_COLLECTIVE_RTOL, MP_COLLECTIVE_ATOL = 1e-6, 1e-7
+MP_TIMEOUT = 120.0        # seconds a group of processes may take
+MP_WORKER = "--multi-process-worker"
 # the TPU kernels the instantiations replace
 K2_REPLACES = "adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426"
 K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
@@ -2403,6 +2432,270 @@ def layouts(amt, build, chains: dict) -> dict:
     return out
 
 
+def mp_sharded(amt, mesh, counters, label: str, kernel, seed: int,
+               budget: tuple, extra_fields: tuple) -> tuple:
+    """``kernel`` through run_mcmc_sharded on ``mesh`` at ``budget``
+    (chains a process, warmup, samples, thinning) after a short untimed
+    run, its kernels' launches counted from 0 around it; then this
+    process's block against a one-process run of it from the rank's
+    generator, bit for bit (draws, extra fields, last state).  Returns
+    (gathered draws, last state, chain-iters/s of this process, launches
+    by module name)."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors
+    from adaptive_mcmc_tpu_torch.parallel import (
+        ChainMesh,
+        chain_sharding,
+        rank_generator,
+        run_mcmc_sharded,
+    )
+    C, warmup, samples, thinning = budget
+    dev = mesh.device
+    # a short run first: a fresh process pays its first launches, the
+    # graph's capture and the gather's first collective there
+    run_mcmc_sharded(kernel, torch.Generator(dev).manual_seed(seed + 1),
+                     thinning, thinning, thinning=thinning,
+                     n_chains=C * mesh.size, mesh=mesh)
+    reset_launches(*counters)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    s, extras, last = run_mcmc_sharded(
+        kernel, torch.Generator(dev).manual_seed(seed), warmup, samples,
+        thinning=thinning, n_chains=C * mesh.size, mesh=mesh,
+        extra_fields=extra_fields)
+    torch.cuda.synchronize(dev)
+    rate = (warmup + samples) * C / (time.perf_counter() - t0)
+    launches = {m.__name__.rsplit(".", 1)[-1]: m.launches for m in counters}
+    rows = chain_sharding(mesh, C * mesh.size)
+    s1, extras1, last1 = run_mcmc_sharded(
+        kernel, rank_generator(torch.Generator(dev).manual_seed(seed),
+                               mesh.rank), warmup, samples,
+        thinning=thinning, n_chains=C, mesh=ChainMesh(dev),
+        extra_fields=extra_fields)
+    require(torch.equal(s[:, rows], s1)
+            and all(torch.equal(extras[f][:, rows], extras1[f])
+                    for f in extra_fields)
+            and all(torch.equal(a, b) for a, b in zip(state_tensors(last),
+                                                      state_tensors(last1))),
+            f"{label}: rank {mesh.rank}'s block differs from its "
+            f"one-process run")
+    require(bool(torch.isfinite(s).all()), f"{label}: non-finite draws")
+    print(f"{label}: rank {mesh.rank} of {mesh.size} on {dev}: its block "
+          f"of {C} chains equals its one-process run bit for bit; "
+          f"{rate:.1f} chain-iters/s this rank; launches {launches}",
+          flush=True)
+    return s, last, rate, launches
+
+
+def mp_collectives(mesh, draws, label: str) -> float:
+    """cross_chain_moments and sharded_gelman_rubin over the mesh on this
+    process's block of ``draws`` (frames, chains, d) against one process's
+    on the gathered draws; returns the largest |err| / (atol + rtol
+    |want|)."""
+    from adaptive_mcmc_tpu_torch.parallel import (
+        ChainMesh,
+        chain_sharding,
+        cross_chain_moments,
+        sharded_gelman_rubin,
+    )
+    rows = chain_sharding(mesh, draws.shape[1])
+    alone = ChainMesh(mesh.device)
+    got = [*cross_chain_moments(draws[-1, rows], mesh),
+           sharded_gelman_rubin(draws[:, rows], mesh)]
+    want = [*cross_chain_moments(draws[-1], alone),
+            sharded_gelman_rubin(draws, alone)]
+    err = max(float(((a.double() - b.double()).abs()
+                     / (MP_COLLECTIVE_ATOL
+                        + MP_COLLECTIVE_RTOL * b.double().abs())).max())
+              for a, b in zip(got, want))
+    require(err <= 1.0, f"{label}: the collectives over the mesh differ "
+                        f"from one process's ({err:.3f})")
+    return err
+
+
+def mp_nccl(amt, mesh, counters, card: str) -> dict:
+    """Phase (a) in one process of the NCCL group."""
+    t = amt.eight_schools_noncentered()
+    k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=MP_ARWMH[1]))
+    s, _, rate, arwmh_n = mp_sharded(
+        amt, mesh, counters, "A15 NCCL eight schools ARWMH (K1)", k, 41,
+        MP_ARWMH, ("potential_energy",))
+    err = mp_collectives(mesh, s, "A15 NCCL")
+    k = amt.asss(amt.diamonds(), amt.ASSSConfig(
+        fused=True, num_warmup=MP_ASSS_DIAMONDS[1]))
+    _, _, asss_rate, asss_n = mp_sharded(
+        amt, mesh, counters, "A15 NCCL diamonds ASSS (K3)", k, 42,
+        MP_ASSS_DIAMONDS, ("potential_energy",))
+    require(arwmh_n["chol_update"] > 0 and asss_n["asss_fused"] > 0,
+            f"A15 NCCL: K1 {arwmh_n['chol_update']}, K3 "
+            f"{asss_n['asss_fused']} launches")
+    print(f"A15 NCCL rank {mesh.rank} of {mesh.size}: chain-iters/s this "
+          f"rank: eight schools ARWMH (K1) {rate:.1f}, diamonds ASSS (K3) "
+          f"{asss_rate:.1f}; collectives against one process's at most "
+          f"{err:.4f} of rtol {MP_COLLECTIVE_RTOL} atol {MP_COLLECTIVE_ATOL}"
+          f" on {card}", flush=True)
+    return {"arwmh_rate": rate, "asss_rate": asss_rate,
+            "launches": [["chol_update", None, arwmh_n["chol_update"]],
+                         ["asss_fused", "diamonds", asss_n["asss_fused"]]]}
+
+
+def mp_gloo(amt, mesh, counters, card: str) -> dict:
+    """Phase (b) in one of two gloo processes sharing card 0."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import map_state
+    from adaptive_mcmc_tpu_torch.parallel import (
+        ChainMesh,
+        chain_sharding,
+        rank_seed,
+    )
+    k = amt.arwmh(amt.diamonds(), amt.ARWMHConfig(
+        fused=True, num_warmup=MP_K2_DIAMONDS[1]))
+    _, _, rate, k2_n = mp_sharded(
+        amt, mesh, counters, "A15 gloo diamonds ARWMH (K2)", k, 43,
+        MP_K2_DIAMONDS, ("potential_energy", "as_change"))
+    require(k2_n["arwmh_fused"] > 0, "A15 gloo: K2 never launched")
+    kf, adapt = amt.analysis.frozen_asss(amt.gaussian_mixture_1d(),
+                                         device=mesh.device)
+    P, S = ROLLOUT_PROBES, ROLLOUT_SAMPLES
+    X = torch.linspace(-2.5, 2.5, P, device=mesh.device)[:, None]
+    torch.cuda.synchronize(mesh.device)
+    t0 = time.perf_counter()
+    out = amt.sample_pnx(kf, 21, X, adapt, n=ROLLOUT_N, n_samples=S,
+                         mesh=mesh)
+    torch.cuda.synchronize(mesh.device)
+    pnx_s = time.perf_counter() - t0
+    rows = chain_sharding(mesh, P * S)
+    t0 = time.perf_counter()
+
+    def grid(a):
+        lead = a[:, None] if a.dim() else a
+        return lead.expand((P, S) + tuple(a.shape[1:])) \
+            .reshape((P * S,) + tuple(a.shape[1:]))[rows]
+
+    # the twin in the eager blocks, which equal the graphs' (PR 12)
+    alone = amt.sample_pnx(kf, rank_seed(21, mesh.rank), grid(X),
+                           map_state(grid, adapt), n=ROLLOUT_N, n_samples=1,
+                           mesh=ChainMesh(mesh.device), eager=True)
+    torch.cuda.synchronize(mesh.device)
+    alone_s = time.perf_counter() - t0
+    require(out.shape == (P, S, 1) and torch.equal(
+        out.reshape(P * S, 1)[rows], alone[:, 0]),
+        f"A15 gloo: rank {mesh.rank}'s sample_pnx block differs from its "
+        f"one-process rollout")
+    print(f"A15 gloo rank {mesh.rank} of {mesh.size}: diamonds ARWMH (K2) "
+          f"{rate:.1f} chain-iters/s this rank; seeded frozen ASSS "
+          f"sample_pnx at {P * S} chains (n = {ROLLOUT_N}) in "
+          f"{pnx_s:.3f} s (its first in this process: captures "
+          f"included), its block of {rows.stop - rows.start} equal to the "
+          f"one-process eager rollout of it ({alone_s:.3f} s) bit for bit, "
+          f"on "
+          f"{card}", flush=True)
+    return {"k2_rate": rate,
+            "launches": [["arwmh_fused", "diamonds", k2_n["arwmh_fused"]]]}
+
+
+def mp_worker(argv: list) -> int:
+    """One process of the multi-process phase: ``nccl`` (its own card) or
+    ``gloo`` (card 0), rank, world size, rendezvous URL, the launch's
+    time.time().  Prints its report as one line ``A15_REPORT {json}``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import adaptive_mcmc_tpu_torch as amt
+    from adaptive_mcmc_tpu_torch.bench import card_name
+    from adaptive_mcmc_tpu_torch.ops.cuda import _build
+    from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2
+    from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3
+    from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1
+    from adaptive_mcmc_tpu_torch.parallel import (
+        chain_mesh,
+        initialize_distributed,
+    )
+    part, rank, world, init_method, launched = argv
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda", rank if part == "nccl" else 0)
+    initialize_distributed(init_method, world, rank, device=dev,
+                           backend=part,
+                           timeout=datetime.timedelta(seconds=60))
+    print(f"A15 {part} process {rank} of {world}: in its process group "
+          f"{time.time() - float(launched):.1f} s after its launch",
+          flush=True)
+    try:
+        mesh = chain_mesh()
+        require(mesh.size == world and mesh.device == dev,
+                f"mesh {mesh}")
+        run = mp_nccl if part == "nccl" else mp_gloo
+        report = run(amt, mesh, (k1, k2, k3), card_name())
+        require(not _build.build_seconds,
+                f"process {rank} ran nvcc: {_build.build_seconds}")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    print("A15_REPORT " + json.dumps(report), flush=True)
+    return 0
+
+
+def run_multiprocess(card: str) -> dict:
+    """The multi-process phase (A15): (a) NCCL, one process per card, at
+    one process and, on a machine of several cards, at all of them; (b)
+    dryrun_multichip(2) over gloo on the card, then two gloo processes
+    sharing card 0.  Every process loads the libraries built at the start
+    (one that runs nvcc fails); a process's failure, a timeout or a failed
+    init fails the run.  Returns the launches of K1 (its chains-first
+    kernel, target None), K2 and K3 (by target) summed over the processes,
+    keyed (library, target)."""
+    from adaptive_mcmc_tpu_torch.entry import (
+        dryrun_multichip,
+        free_tcp_address,
+        run_workers,
+    )
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    script = str(Path(__file__).resolve())
+    launches: dict = {}
+    rates = {}
+
+    def group(part: str, world: int) -> list:
+        url, launched = free_tcp_address(), str(time.time())
+        outs = run_workers(lambda r: [script, MP_WORKER, part, str(r),
+                                      str(world), url, launched],
+                           world, MP_TIMEOUT, f"A15 {part} at {world}")
+        reports = []
+        for r, out in enumerate(outs):
+            for line in out.splitlines():
+                if line.startswith("A15_REPORT "):
+                    reports.append(json.loads(line.split(" ", 1)[1]))
+                elif line.startswith("A15 "):
+                    print(f"  [process {r}] {line}")
+        require(len(reports) == world, f"A15 {part}: {len(reports)} reports "
+                                       f"from {world} processes")
+        for rep in reports:
+            for lib, target, n in rep["launches"]:
+                launches[(lib, target)] = launches.get((lib, target), 0) + n
+        return reports
+
+    count = torch.cuda.device_count()
+    for world in [1] + ([count] if count > 1 else []):
+        reps = group("nccl", world)
+        rates[world] = [r["arwmh_rate"] for r in reps]
+    # the dry run's two processes beside the two gloo processes, all on
+    # card 0 (no rate of (b) is a scaling figure)
+    with ThreadPoolExecutor(1) as pool:
+        dryrun = pool.submit(dryrun_multichip, 2, backend="gloo")
+        reps = group("gloo", 2)
+        dryrun.result()
+    print(f"A15 chain-iters/s per process, eight schools ARWMH (K1) at "
+          f"{MP_ARWMH[0]} chains a process: " + "; ".join(
+              f"{w} NCCL process(es): " + ", ".join(f"{x:.1f}" for x in r)
+              for w, r in rates.items())
+          + f"; diamonds ARWMH (K2) at {MP_K2_DIAMONDS[0]} chains, two gloo "
+          f"processes sharing card 0 (one card's SMs between them: no "
+          f"scaling figure): " + ", ".join(f"{r['k2_rate']:.1f}"
+                                           for r in reps) + f" on {card}")
+    print(f"A15 multi-process phase: {time.perf_counter() - t0:.1f} s; "
+          f"launches {launches}")
+    return launches
+
+
 def kernel_entry(name: str, source: str, replaces: str, launches: int,
                  lanes: int, res: dict) -> dict:
     return dict(name=name, route="cuda",
@@ -2611,6 +2904,14 @@ def main() -> int:
     k1_figures = run_figures(amt, counters, card)
     elapsed("the figure families")
 
+    # the port across processes (A15): NCCL one process per card, gloo two
+    # processes on card 0, dryrun_multichip(2)
+    mp_launches = run_multiprocess(card)
+    k1_mp = mp_launches.pop(("chol_update", None))
+    for key, n in mp_launches.items():
+        launches[key] += n
+    elapsed("the multi-process phase (A15)")
+
     # the lockstep steps under torch.profiler, after every timed path: once
     # the profiler has been on, every later launch of the process costs the
     # host more
@@ -2640,16 +2941,18 @@ def main() -> int:
     # K1's chains-first kernel ran the ARWMH lockstep path, ASSS's lockstep
     # step (its run through K1 and its graph check), the SA path, the
     # harness's ARWMH and SA cells on their default drivers and the
-    # figures' adaptation_drift, its chains-last kernel the pipelined ASSS
-    # machine and the harness's ASSS cells on the machine and its machine
-    # lr_decay; K2 and K3 the harness's fused diamonds cells, K2 its
-    # lr_decay cell too
+    # figures' adaptation_drift and the A15 processes' ARWMH, its
+    # chains-last kernel the pipelined ASSS machine and the harness's ASSS
+    # cells on the machine and its machine lr_decay; K2 and K3 the
+    # harness's fused diamonds cells (K2 its lr_decay cell too) and the A15
+    # processes' diamonds runs
     k1_first = k1_main + k1_asss[True][1] + k1_lockstep + k1_sa \
-        + k1_harness[0] + k1_figures
+        + k1_harness[0] + k1_figures + k1_mp
     print(f"launches: chol_update (chains first) {k1_first} = ARWMH "
           f"lockstep {k1_main} + ASSS lockstep {k1_asss[True][1]} + its "
           f"graph check {k1_lockstep} + SA {k1_sa} + harness "
-          f"{k1_harness[0]} + figures {k1_figures}")
+          f"{k1_harness[0]} + figures {k1_figures} + A15 processes "
+          f"{k1_mp}")
     kernels = [kernel_entry("chol_update", "chol_update.cu", K1_REPLACES,
                             k1_first,
                             lanes[("chol_update", "first")],
@@ -2675,4 +2978,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mp_worker(sys.argv[2:]) if sys.argv[1:2] == [MP_WORKER]
+             else main())

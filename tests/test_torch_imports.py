@@ -81,7 +81,8 @@ def _imports(path: Path) -> list:
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
-                         [ROOT / "chip_smoke.py"],
+                         [ROOT / "chip_smoke.py",
+                          ROOT / "tests" / "_torch_distributed_worker.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_source_imports_no_jax(path):
     bad = [n for n in _imports(path) if _forbidden(n)]

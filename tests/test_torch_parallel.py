@@ -1,10 +1,11 @@
-"""The one-device parallel layer of the port (adaptive_mcmc_tpu_torch
-.parallel): fan_state's clone-major layout against JAX's on the same
-state, run_mcmc_sharded against the port's run_mcmc bit for bit (ARWMH's
-lockstep loop, ASSS's collect_n), chunked runs against unchunked ones,
-fan-out shapes, the mesh's refusal of more than one device, and the
-collectives against JAX's on its 8-device CPU test mesh (rtol 1e-5) and
-against plain torch and the split R̂ of infer.diagnostics."""
+"""The parallel layer of the port (adaptive_mcmc_tpu_torch.parallel) in one
+process: fan_state's clone-major layout against JAX's on the same state,
+run_mcmc_sharded against the port's run_mcmc bit for bit (ARWMH's lockstep
+loop, ASSS's collect_n), chunked runs against unchunked ones, fan-out
+shapes, the one-process chain mesh, and the collectives against JAX's on
+its 8-device CPU test mesh (rtol 1e-5) and against plain torch and the
+split R̂ of infer.diagnostics.  The mesh over several processes:
+tests/test_torch_distributed.py."""
 
 import numpy as np
 import pytest
@@ -26,10 +27,13 @@ from adaptive_mcmc_tpu_torch.infer.diagnostics import (  # noqa: E402
     gelman_rubin,
 )
 from adaptive_mcmc_tpu_torch.parallel import (  # noqa: E402
+    ChainMesh,
     chain_mesh,
+    chain_sharding,
     cross_chain_moments,
     fan_state,
     initialize_distributed,
+    replicated,
     run_mcmc_sharded,
     sharded_gelman_rubin,
 )
@@ -140,26 +144,47 @@ def test_fan_out_shapes_and_distinct_clones(name):
                          fan_out=4)
 
 
-def test_mesh_is_one_device():
-    assert chain_mesh(devices=["cpu"]) == CPU
-    assert chain_mesh(1, devices=["cpu"]) == CPU
-    with pytest.raises(NotImplementedError, match="A15"):
-        chain_mesh(2)
-    with pytest.raises(NotImplementedError, match="A15"):
+def test_one_process_chain_mesh():
+    """With no process group: a one-device mesh of this process, its
+    sharding the whole chain axis; a mesh of several devices raises and
+    says how to launch (one process per device); no silent CPU."""
+    mesh = chain_mesh(devices=["cpu"])
+    assert mesh == ChainMesh(CPU) and chain_mesh(1, devices=["cpu"]) == mesh
+    assert (mesh.size, mesh.rank, mesh.member, mesh.group) == (1, 0, True,
+                                                               None)
+    assert chain_sharding(mesh, 6) == slice(0, 6)
+    assert replicated(mesh) == CPU
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        chain_mesh(2, devices=["cpu"])
+    with pytest.raises(ValueError, match="one device"):
         chain_mesh(devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="RANK"):
         initialize_distributed(num_processes=2)
-    initialize_distributed()
+    assert initialize_distributed() is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             chain_mesh()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            initialize_distributed(num_processes=2, process_id=0)
+
+
+def test_cli_mesh_devices_without_a_process_group_says_how_to_launch(
+        tmp_path):
+    from adaptive_mcmc_tpu_torch.experiments import cli
+
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
+        cli.main(["w_eval", "--target", "eight_schools", "--kernel",
+                  "arwmh", "--seeds", "4", "--scale", "0.0002",
+                  "--out-dir", str(tmp_path), "--device", "cpu",
+                  "--mesh-devices", "2"])
+    assert not (tmp_path / "w_eval").exists()
 
 
 def test_generator_and_mesh_must_agree():
     k = amt.arwmh(amt.std_normal(2))
     with pytest.raises(ValueError, match="generator"):
         run_mcmc_sharded(k, _gen(0), 2, 4, n_chains=2,
-                         mesh=torch.device("meta"))
+                         mesh=ChainMesh(torch.device("meta")))
 
 
 @pytest.mark.parametrize("shape", [(64, 3), (32, 2, 5)])
