@@ -1,0 +1,23 @@
+"""K3's share of its roofline in the traced window: the least time its
+launches' work could take on the card (``counts/k3.py`` from the window's
+chain-iterations and draws, the traffic's fixed iterations per transition
+and the launches found in the trace; ``peaks.py``) over the device time of
+the K3 kernels, found by name in the profiler's trace, in percent."""
+
+NAMES = ("asss_rows_kernel", "asss_replicated_kernel")
+
+
+def read(ctx):
+    from benchmark.peaks import bound_seconds
+
+    if ctx.trace is None:
+        return None
+    seconds = ctx.trace.kernel_seconds(NAMES)
+    if seconds <= 0:
+        return None
+    if ctx.traced_work.get("chain_iters", 0) <= 0:
+        raise RuntimeError("K3 ran in the traced window, but its jobs "
+                           "counted no chain-iterations")
+    nbytes, ops = ctx.registry.counts("k3").traced(
+        ctx, ctx.trace.kernel_count(NAMES))
+    return 100.0 * bound_seconds(nbytes, ops) / seconds
