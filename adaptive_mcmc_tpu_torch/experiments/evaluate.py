@@ -23,6 +23,7 @@ run on the card unless ``device="cpu"`` is passed.
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 from pathlib import Path
@@ -42,6 +43,7 @@ from adaptive_mcmc_tpu_torch.metrics import (
     wasserstein_sinkhorn,
 )
 from adaptive_mcmc_tpu_torch.models.data import DATA_DIR
+from adaptive_mcmc_tpu_torch.utils import profiling
 
 COLUMNS = ("rng_seed", "rmse_means", "wasserstein", "sinkhorn", "mmd",
            "ess_median", "ess_min")
@@ -273,6 +275,7 @@ def write_csv(table: dict, path) -> None:
             w.writerow([str(i)] + [_format(c[i], c.dtype) for c in cols])
 
 
+@profiling.spanned("evaluate_run")
 def evaluate_run(
     run_npz: str | Path,
     reference: np.ndarray,
@@ -356,127 +359,129 @@ def evaluate_run(
             ck_path.parent.mkdir(parents=True, exist_ok=True)
             ck_path.write_text(json.dumps({"sig": ck_sig, "wass": wass}))
 
-    clock = [time.perf_counter()]
+    @contextlib.contextmanager
+    def _column(name: str):
+        """One metric column: its span ``evaluate.<name>``, and its
+        seconds in ``timings`` (host clock closed by a synchronize)."""
+        with profiling.span(f"evaluate.{name}"):
+            t0 = time.perf_counter()
+            yield
+            synchronize(dev)
+            if timings is not None:
+                timings[name] = time.perf_counter() - t0
 
-    def _took(column: str) -> None:
-        synchronize(dev)
-        now = time.perf_counter()
-        if timings is not None:
-            timings[column] = now - clock[0]
-        clock[0] = now
-
-    xs = torch.as_tensor(np.asarray(samples, np.float32), device=dev)
-    rmse = [float(pth_moment_rmse(x, y, p=1.0)) for x in xs]
-    _took("rmse_means")
-    mmd = [float(v) for v in mmd_heuristic_many(xs, y)]
-    _took("mmd")
-    sk = [
-        float(wasserstein_sinkhorn(xs[s], y)) if sinkhorn else float("nan")
-        for s in range(S)
-    ]
-    _took("sinkhorn")
+    with _column("rmse_means"):
+        xs = torch.as_tensor(np.asarray(samples, np.float32), device=dev)
+        rmse = [float(pth_moment_rmse(x, y, p=1.0)) for x in xs]
+    with _column("mmd"):
+        mmd = [float(v) for v in mmd_heuristic_many(xs, y)]
+    with _column("sinkhorn"):
+        sk = [float(wasserstein_sinkhorn(xs[s], y)) if sinkhorn
+              else float("nan") for s in range(S)]
 
     k = S if exact_wasserstein_seeds is None else min(
         S, exact_wasserstein_seeds
     )
-    if exact_w_solver == "auction":
-        from adaptive_mcmc_tpu_torch.metrics.assignment import (
-            auction_assignment_batch,
-        )
-        from adaptive_mcmc_tpu_torch.metrics.wasserstein import (
-            minkowski_cost_matrix,
-        )
-
-        n_draws = min(samples.shape[1], reference.shape[0])
-        y_dev = y[:n_draws]
-        rows = torch.arange(n_draws, device=dev)
-        B = max(1, int(exact_w_batch))
-
-        def _check(s: int, w: float) -> None:
-            # comparison noise + the auction's certified bound: mean
-            # assigned cost is within eps_final = range/(2·n) of optimal,
-            # which dominates at small n (tests) and vanishes at n=10k
-            w_exact = _wasserstein_worker(
-                (np.asarray(samples[s], np.float64),
-                 np.asarray(reference, np.float64))
+    with _column("wasserstein"):
+        if exact_w_solver == "auction":
+            from adaptive_mcmc_tpu_torch.metrics.assignment import (
+                auction_assignment_batch,
             )
-            pts = np.concatenate(
-                [samples[s, :n_draws], np.asarray(reference[:n_draws])]
+            from adaptive_mcmc_tpu_torch.metrics.wasserstein import (
+                minkowski_cost_matrix,
             )
-            span = float(np.linalg.norm(
-                np.max(pts, axis=0) - np.min(pts, axis=0)
-            ))
-            tol = 2e-3 * max(1.0, abs(w_exact)) + span / (2.0 * n_draws)
-            if abs(w - w_exact) > tol:
-                raise AssertionError(
-                    f"auction W {w:.6f} disagrees with exact Hungarian "
-                    f"{w_exact:.6f} on seed {s}"
-                )
 
-        prices = None  # warm-start duals: the same reference set per seed
-        wass = list(wass_resume[:k])
-        if B == 1:
-            for s in range(len(wass), k):
-                w, prices = wasserstein_dist11_p(
-                    xs[s, :n_draws], y_dev, solver="auction",
-                    prices_init=prices, return_prices=True,
+            n_draws = min(samples.shape[1], reference.shape[0])
+            y_dev = y[:n_draws]
+            rows = torch.arange(n_draws, device=dev)
+            B = max(1, int(exact_w_batch))
+
+            def _check(s: int, w: float) -> None:
+                # comparison noise + the auction's certified bound: mean
+                # assigned cost is within eps_final = range/(2·n) of optimal,
+                # which dominates at small n (tests) and vanishes at n=10k
+                w_exact = _wasserstein_worker(
+                    (np.asarray(samples[s], np.float64),
+                     np.asarray(reference, np.float64))
                 )
-                if s < hungarian_check_seeds:
-                    _check(s, w)
-                wass.append(float(w))
-                _ck_save(wass)
-                if verbose and (s + 1) % 20 == 0:
-                    print(f"  [wasserstein] seed {s+1}/{k}", flush=True)
+                pts = np.concatenate(
+                    [samples[s, :n_draws], np.asarray(reference[:n_draws])]
+                )
+                span = float(np.linalg.norm(
+                    np.max(pts, axis=0) - np.min(pts, axis=0)
+                ))
+                tol = 2e-3 * max(1.0, abs(w_exact)) + span / (2.0 * n_draws)
+                if abs(w - w_exact) > tol:
+                    raise AssertionError(
+                        f"auction W {w:.6f} disagrees with exact Hungarian "
+                        f"{w_exact:.6f} on seed {s}"
+                    )
+
+            prices = None  # warm-start duals: the same reference set per seed
+            wass = list(wass_resume[:k])
+            if B == 1:
+                for s in range(len(wass), k):
+                    w, prices = wasserstein_dist11_p(
+                        xs[s, :n_draws], y_dev, solver="auction",
+                        prices_init=prices, return_prices=True,
+                    )
+                    if s < hungarian_check_seeds:
+                        _check(s, w)
+                    wass.append(float(w))
+                    _ck_save(wass)
+                    if verbose and (s + 1) % 20 == 0:
+                        print(f"  [wasserstein] seed {s+1}/{k}", flush=True)
+            else:
+                # batches after the first warm-start from the previous batch's
+                # duals; the Hungarian check therefore also covers the first
+                # warm-started seed (s == B), not just the cold batch
+                for s0 in range(len(wass), k, B):
+                    idx = list(range(s0, min(s0 + B, k)))
+                    costs = torch.stack([
+                        minkowski_cost_matrix(xs[s, :n_draws], y_dev)
+                        for s in idx
+                    ])
+                    cols, prices = auction_assignment_batch(
+                        costs, prices_init=prices, return_prices=True,
+                    )
+                    ws = [
+                        float(torch.mean(costs[i, rows, cols[i]]))
+                        for i in range(len(idx))
+                    ]
+                    del costs
+                    for i, s in enumerate(idx):
+                        if s < hungarian_check_seeds or s == B:
+                            _check(s, ws[i])
+                    wass.extend(ws)
+                    _ck_save(wass)
+                    if verbose:
+                        print(f"  [wasserstein] seed {len(wass)}/{k}",
+                              flush=True)
         else:
-            # batches after the first warm-start from the previous batch's
-            # duals; the Hungarian check therefore also covers the first
-            # warm-started seed (s == B), not just the cold batch
-            for s0 in range(len(wass), k, B):
-                idx = list(range(s0, min(s0 + B, k)))
-                costs = torch.stack([
-                    minkowski_cost_matrix(xs[s, :n_draws], y_dev)
-                    for s in idx
-                ])
-                cols, prices = auction_assignment_batch(
-                    costs, prices_init=prices, return_prices=True,
-                )
-                ws = [
-                    float(torch.mean(costs[i, rows, cols[i]]))
-                    for i in range(len(idx))
-                ]
-                del costs
-                for i, s in enumerate(idx):
-                    if s < hungarian_check_seeds or s == B:
-                        _check(s, ws[i])
-                wass.extend(ws)
-                _ck_save(wass)
-                if verbose:
-                    print(f"  [wasserstein] seed {len(wass)}/{k}",
-                          flush=True)
-    else:
-        y_np = np.asarray(reference, np.float64)
-        jobs = [(np.asarray(samples[s], np.float64), y_np) for s in range(k)]
-        n_workers = n_workers or min(12, os.cpu_count() or 1)
-        if n_workers > 1 and k > 1:
-            import multiprocessing as mp
+            y_np = np.asarray(reference, np.float64)
+            jobs = [(np.asarray(samples[s], np.float64), y_np)
+                    for s in range(k)]
+            n_workers = n_workers or min(12, os.cpu_count() or 1)
+            if n_workers > 1 and k > 1:
+                import multiprocessing as mp
 
-            # spawn (not fork): the parent holds a CUDA context; workers
-            # only need numpy + the native solver
-            with cf.ProcessPoolExecutor(
-                max_workers=n_workers, mp_context=mp.get_context("spawn")
-            ) as pool:
-                wass = list(pool.map(_wasserstein_worker, jobs, chunksize=1))
-        else:
-            wass = []
-            for i, j in enumerate(jobs):
-                wass.append(_wasserstein_worker(j))
-                if verbose:
-                    print(f"  [wasserstein] seed {i+1}/{k}", flush=True)
-    wass += [float("nan")] * (S - k)
-    _took("wasserstein")
+                # spawn (not fork): the parent holds a CUDA context; workers
+                # only need numpy + the native solver
+                with cf.ProcessPoolExecutor(
+                    max_workers=n_workers, mp_context=mp.get_context("spawn")
+                ) as pool:
+                    wass = list(pool.map(_wasserstein_worker, jobs,
+                                         chunksize=1))
+            else:
+                wass = []
+                for i, j in enumerate(jobs):
+                    wass.append(_wasserstein_worker(j))
+                    if verbose:
+                        print(f"  [wasserstein] seed {i+1}/{k}", flush=True)
+        wass += [float("nan")] * (S - k)
 
-    ess = ess_columns(samples, fan_out)  # (seeds, dim)
-    _took("ess")
+    with _column("ess"):
+        ess = ess_columns(samples, fan_out)  # (seeds, dim)
     table = {
         "rng_seed": np.arange(S),
         "rmse_means": np.asarray(rmse, np.float64),

@@ -31,6 +31,7 @@ from adaptive_mcmc_tpu_torch.experiments.configs import (
     RunConfig,
 )
 from adaptive_mcmc_tpu_torch.infer.collect import collect_states_logscale
+from adaptive_mcmc_tpu_torch.utils import profiling
 from adaptive_mcmc_tpu_torch.utils.checkpoint import SweepManifest
 
 TARGETS: Dict[str, Callable] = {
@@ -109,6 +110,7 @@ def build_kernel(name: str, target, *, lr_decay: float, num_warmup: int,
     raise ValueError(f"unknown kernel {name!r}")
 
 
+@profiling.spanned("run_w_eval")
 def run_w_eval(config: RunConfig, verbose: bool = True, *,
                device=None) -> Path:
     """Run the w_eval experiment for one (target, kernel): all seeds as one
@@ -121,7 +123,12 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
     Rank 0 alone decides whether the cell is already complete (and tells
     the others) and writes the npz and the manifest; the meta's
     ``wall_seconds`` is the slowest process's.  A process outside a
-    sub-mesh returns None."""
+    sub-mesh returns None.
+
+    The call is the span ``run_w_eval`` (``utils.profiling``), with the
+    spans ``run_w_eval.build`` (the target and the kernel), ``.sample``
+    (the sharded run, closed by a synchronize), ``.to_host`` (the draws
+    copied to the host) and ``.save`` (the npz and the manifest) in it."""
     from adaptive_mcmc_tpu_torch.parallel import chain_mesh, run_mcmc_sharded
 
     out_dir = Path(config.out_dir) / "w_eval" / config.target
@@ -145,42 +152,44 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
             print(f"[skip] {out_path} already complete")
         return out_path
 
-    target = TARGETS[config.target]()
-    kernel = build_kernel(
-        config.kernel, target,
-        lr_decay=config.lr_decay, num_warmup=config.num_warmup,
-        fused=config.fused,
-    )
+    with profiling.span("run_w_eval.build"):
+        target = TARGETS[config.target]()
+        kernel = build_kernel(
+            config.kernel, target,
+            lr_decay=config.lr_decay, num_warmup=config.num_warmup,
+            fused=config.fused,
+        )
     n_chains = config.n_seeds * config.chains_per_seed
     # pad chains to a mesh multiple
     n_padded = -(-n_chains // mesh.size) * mesh.size
 
     generator = torch.Generator(dev).manual_seed(config.seed0)
-    synchronize(dev)
-    t0 = time.perf_counter()
     # bound single driver calls, as the JAX runner bounds device programs
     max_steps = {"nuts": 20_000, "sa": 50_000}.get(config.kernel, 500_000)
     F = max(1, config.fan_out)
-    samples, extras, last = run_mcmc_sharded(
-        kernel,
-        generator,
-        config.num_warmup,
-        config.num_samples,
-        thinning=config.thinning,
-        n_chains=n_padded,
-        mesh=mesh,
-        max_steps_per_call=max_steps,
-        fan_out=F,
-        extra_fields=("potential_energy", "as_change")
-        if kernel.name in ("arwmh", "rwm", "asss")
-        else ("potential_energy",),
-    )
-    synchronize(dev)
-    wall = torch.tensor(time.perf_counter() - t0, dtype=torch.float64,
-                        device=dev)
-    if mesh.size > 1:
-        dist.all_reduce(wall, op=dist.ReduceOp.MAX, group=mesh.group)
-    wall = float(wall)
+    with profiling.span("run_w_eval.sample"):
+        synchronize(dev)
+        t0 = time.perf_counter()
+        samples, extras, last = run_mcmc_sharded(
+            kernel,
+            generator,
+            config.num_warmup,
+            config.num_samples,
+            thinning=config.thinning,
+            n_chains=n_padded,
+            mesh=mesh,
+            max_steps_per_call=max_steps,
+            fan_out=F,
+            extra_fields=("potential_energy", "as_change")
+            if kernel.name in ("arwmh", "rwm", "asss")
+            else ("potential_energy",),
+        )
+        synchronize(dev)
+        wall = torch.tensor(time.perf_counter() - t0, dtype=torch.float64,
+                            device=dev)
+        if mesh.size > 1:
+            dist.all_reduce(wall, op=dist.ReduceOp.MAX, group=mesh.group)
+        wall = float(wall)
     if not lead:
         return out_path
 
@@ -203,14 +212,13 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
         # run_mcmc_sharded's choice.
         "driver": _driver_name(kernel, config.kernel),
     }
-    out_dir.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(
-        out_path,
-        samples=_per_seed(samples),  # (seeds, draws, dim)
-        potential_energy=_per_seed(extras["potential_energy"]),
-        meta=json.dumps(meta),
-    )
-    manifest.mark_done(key)
+    with profiling.span("run_w_eval.to_host"):
+        draws = {"samples": _per_seed(samples),  # (seeds, draws, dim)
+                 "potential_energy": _per_seed(extras["potential_energy"])}
+    with profiling.span("run_w_eval.save"):
+        out_dir.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(out_path, **draws, meta=json.dumps(meta))
+        manifest.mark_done(key)
     if verbose:
         print(
             f"[done] {out_path}: {total_iters / wall:,.0f} chain-iters/s "

@@ -15,18 +15,25 @@ declare ``graph_step``, ARWMH, RWM and SA), or the parts of a step whose
 inner loop reads the host once per block of trips (:class:`LockstepGraph`;
 kernels that declare ``step_parts``, ASSS), and elsewhere the loop over
 steps is a Python loop.
+
+Spans and counters (``utils.profiling``): ``MCMC.run``; ``graph.capture``
+around every capture (its ``label``: the kernel or machine);
+``graph.replays``, per replay; ``host.reads``, the reads of a machine's
+progress between blocks; ``rollouts.<device type>``, the frozen rollouts
+of :func:`sample_pnx` by the device they ran on.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from collections import Counter, OrderedDict
+from collections import OrderedDict
 from typing import Callable, Optional, Sequence
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from adaptive_mcmc_tpu_torch.ops.cuda import CapturedLaunches
+from adaptive_mcmc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -78,12 +85,17 @@ class _NoHostRead(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def _label(kernel) -> str:
+    """What is captured: the label given (``"nuts.step_n"``), or the
+    kernel's ``step``."""
+    return kernel if isinstance(kernel, str) else f"{kernel.name}.step"
+
+
 def _capture_error(kernel, why) -> RuntimeError:
     """The refusal of a capture: ``kernel`` is the kernel whose ``step``
     was captured, or the label of what was (``"nuts.step_n"``)."""
-    what = kernel if isinstance(kernel, str) else f"{kernel.name}.step"
     return RuntimeError(
-        f"run_mcmc cannot capture {what} into a CUDA graph: "
+        f"run_mcmc cannot capture {_label(kernel)} into a CUDA graph: "
         f"{why}.  A step whose potential_fn reads a value on the host "
         f"(.item(), bool(tensor), int(tensor)) or makes a shape that "
         f"depends on data runs only in the eager loop: pass eager=True to "
@@ -130,7 +142,8 @@ def _capture(run_block: Callable, generator, kernel,
         graph.register_generator_state(generator)
     shared = {} if pool is None else {"pool": pool}
     try:
-        with CapturedLaunches() as recorded, \
+        with profiling.span("graph.capture", label=_label(kernel)), \
+                CapturedLaunches() as recorded, \
                 torch.cuda.graph(graph, **shared):
             run_block()
     except Exception as e:
@@ -139,6 +152,7 @@ def _capture(run_block: Callable, generator, kernel,
     def replay() -> None:
         graph.replay()
         recorded.replayed()
+        profiling.count("graph.replays")
 
     return replay
 
@@ -202,18 +216,21 @@ class BlockMachine:
     ``label`` names the machine in a refusal (``"nuts.step_n"``);
     ``frames`` are the keys of the frame buffers in ``ctx``; ``running(p,
     ctx)``, a host bool, is by default whether a chain's ``done`` is below
-    ``n_steps``."""
+    ``n_steps``.  Each read of it counts ``host.reads``."""
 
     def __init__(self, label: str, frames: tuple, running=None):
         self.label, self.frames = label, frames
-        if running is not None:
-            self.running = running
+        self._running = running or self._done_below
         # (key, generator, p buffers, ctx buffers, replays, memory pool)
         self.cached = None
 
     @staticmethod
-    def running(p: dict, ctx: dict) -> bool:
+    def _done_below(p: dict, ctx: dict) -> bool:
         return bool((p["done"] < ctx["n_steps"]).any())
+
+    def running(self, p: dict, ctx: dict) -> bool:
+        profiling.count("host.reads")
+        return self._running(p, ctx)
 
     def run(self, p: dict, ctx: dict, step, block: int, count,
             generator=None, saved=None, *, begin=None, end=None,
@@ -479,6 +496,7 @@ class MCMC:
         self._extras = None
         self.last_state = None
 
+    @profiling.spanned("MCMC.run")
     def run(self, generator: torch.Generator, *, init_position=None,
             extra_fields: Sequence[str] = (), device=None,
             eager: bool = False):
@@ -561,8 +579,6 @@ class MCMC:
 # device, generator) -> _Rollout, the least recently used dropped first
 _ROLLOUTS: OrderedDict = OrderedDict()
 MAX_ROLLOUTS = 8
-# sample_pnx calls by the device type their rollout ran on ("cuda", "cpu")
-rollout_devices: Counter = Counter()
 
 
 def _frozen(kernel):
@@ -724,7 +740,7 @@ def _rollout_positions(kernel, generator, pos, adapt_b, n: int,
     seeded = not isinstance(generator, torch.Generator)
     seed = int(generator) if seeded else None
     device = pos.device
-    rollout_devices[device.type] += 1
+    profiling.count(f"rollouts.{device.type}")
     C = pos.shape[0]
     entry = _rollout(kernel, C, n, device, None if seeded else generator)
     if seeded:

@@ -73,6 +73,7 @@ from adaptive_mcmc_tpu_torch.ops.cuda.asss_fused import (
     Machine,
     build_fused_asss,
 )
+from adaptive_mcmc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -82,13 +83,12 @@ Tensor = torch.Tensor
 # it: 4 is the fastest of 4, 8, 16, 32 on eight schools at 4096 chains and
 # ties 8 on the figures' frozen rollouts at d = 1 (PERF.md §6)
 SHRINK_TRIPS = 4
-# trips run by the lockstep step, the masked ones of a block included
-trips = 0
 
 
 def _count(n: int) -> None:
-    global trips
-    trips += n
+    """Count the lockstep step's trips run, the masked ones of a block
+    included (``asss.trips``)."""
+    profiling.count("asss.trips", n)
 
 
 @dataclasses.dataclass(frozen=True)

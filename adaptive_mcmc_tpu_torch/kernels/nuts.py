@@ -64,14 +64,12 @@ from adaptive_mcmc_tpu_torch.kernels.base import (
     batch_positions,
     nan_to_inf,
 )
+from adaptive_mcmc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
 # machine trips per block: one CUDA graph replay, one host read of `done`
 GRAPH_TRIPS = 32
-# machine trips run in this process (each block adds its length, a replay
-# included); a run's profile reads it
-trips = 0
 _SQRT2 = 1.4142135623730951
 _U_LO = -0.99999994  # nextafter(-1, 0) in float32: keeps erfinv finite
 _LOG_10 = math.log(10.0)
@@ -264,8 +262,9 @@ class _LockstepDraws:
 
 
 def _count(n: int) -> None:
-    global trips
-    trips += n
+    """Count the machine's trips run (``nuts.trips``): each block adds its
+    length, a replay included."""
+    profiling.count("nuts.trips", n)
 
 
 def nuts(target, config: NUTSConfig = NUTSConfig()) -> Kernel:

@@ -25,6 +25,11 @@ replay from a CUDA graph (one per block width and solve), and the host reads
 the count of unassigned rows only between blocks; rounds after it reaches
 0 are no-ops, since no row bids.  ``eager=True`` runs the same rounds in a
 Python loop.  A round's temporaries are O(B · block · m).
+
+Spans and counters (``utils.profiling``): ``auction.solve`` per solve and
+``auction.level`` per ε level, ``graph.capture`` around a block's capture;
+``auction.rounds``, ``graph.replays`` and ``host.reads`` (the count of
+unassigned rows between blocks, and the final check).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import numpy as np
 import torch
 
 from adaptive_mcmc_tpu_torch.infer.mcmc import _HostRead, _NoHostRead
+from adaptive_mcmc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -59,8 +65,6 @@ _LIB_ERROR: Optional[str] = None
 # the ε levels of the last auction solve: (ε, rounds run, rounds in which
 # an instance still had an unassigned row, the most over the batch)
 last_levels: list = []
-# blocks of rounds replayed from a CUDA graph, over all solves
-graph_replays = 0
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +208,7 @@ class _Auction:
 
     def left(self) -> int:
         """The most unassigned rows of any instance (a host read)."""
+        profiling.count("host.reads")
         return int(self.unassigned().sum(dim=1).max())
 
     def round(self, block: int) -> None:
@@ -269,14 +274,15 @@ class _Auction:
         graph = self.graphs.get((k, block))
         if graph is None:
             self._rounds(k, block)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self._rounds(k, block)
+            with profiling.span("graph.capture", label="auction", rounds=k,
+                                block=block):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    self._rounds(k, block)
             self.graphs[(k, block)] = graph
             return
-        global graph_replays
         graph.replay()
-        graph_replays += 1
+        profiling.count("graph.replays")
 
     def chunk(self, rounds: int, block: int) -> int:
         """Up to ``rounds`` rounds at ``block``, in blocks of
@@ -286,6 +292,7 @@ class _Auction:
         while done < rounds:
             k = min(ROUNDS_PER_GRAPH, rounds - done)
             self._block(k, block)
+            profiling.count("auction.rounds", k)
             done += k
             if self.left() == 0:
                 break
@@ -297,10 +304,21 @@ def _solve(costs: Tensor, eps_final, scaling_factor: float, max_rounds: int,
            single: bool):
     """ε-scaled auction over ``costs`` (B, n, m) sharing one ε schedule;
     returns (row -> column (B, n) int64, prices (B, m))."""
-    global last_levels
     B, n, m = costs.shape
     if n > m:
         raise ValueError(f"the auction needs n <= m, got {n} x {m}")
+    with profiling.span("auction.solve", B=B, n=n,
+                        warm=prices_init is not None):
+        return _levels(costs, eps_final, scaling_factor, max_rounds, block,
+                       rounds_per_call, prices_init, eager, single)
+
+
+def _levels(costs: Tensor, eps_final, scaling_factor: float,
+            max_rounds: int, block: int, rounds_per_call: int, prices_init,
+            eager: bool, single: bool):
+    """:func:`_solve`'s ε levels."""
+    global last_levels
+    B, n, m = costs.shape
     rng = float(torch.max(costs) - torch.min(costs))
     if eps_final is None:
         # mean assigned cost within range / (2n) of optimal
@@ -318,28 +336,30 @@ def _solve(costs: Tensor, eps_final, scaling_factor: float, max_rounds: int,
     auction = _Auction(-costs, prices, eager)
     levels = []
     while True:
-        auction.reset(eps)
-        spent = run = 0
-        while spent < max_rounds:
-            left = auction.left()
-            if left == 0:
-                break
-            blk, rounds = _block_tier(left, block, rounds_per_call)
-            run += auction.chunk(rounds, blk)
-            spent += rounds
-        levels.append((eps, run, int(auction.live.max())))
-        last_levels = levels
-        if eps <= eps_final:
-            incomplete = auction.unassigned().any(dim=1)
-            if bool(incomplete.any()):
-                what = (f"{int(auction.unassigned().sum())} rows unassigned"
-                        if single else
-                        f"{int(incomplete.sum())} instances incomplete")
-                raise RuntimeError(
-                    f"auction exhausted max_rounds={max_rounds} at eps_final "
-                    f"with {what}: raise max_rounds or use the Hungarian "
-                    f"solver for this instance")
-            return auction.row_to_col[:, :-1].clone(), auction.prices
+        with profiling.span("auction.level", eps=eps):
+            auction.reset(eps)
+            spent = run = 0
+            while spent < max_rounds:
+                left = auction.left()
+                if left == 0:
+                    break
+                blk, rounds = _block_tier(left, block, rounds_per_call)
+                run += auction.chunk(rounds, blk)
+                spent += rounds
+            levels.append((eps, run, int(auction.live.max())))
+            last_levels = levels
+            if eps <= eps_final:
+                incomplete = auction.unassigned().any(dim=1)
+                profiling.count("host.reads")
+                if bool(incomplete.any()):
+                    what = (f"{int(auction.unassigned().sum())} rows "
+                            "unassigned" if single else
+                            f"{int(incomplete.sum())} instances incomplete")
+                    raise RuntimeError(
+                        f"auction exhausted max_rounds={max_rounds} at "
+                        f"eps_final with {what}: raise max_rounds or use "
+                        f"the Hungarian solver for this instance")
+                return auction.row_to_col[:, :-1].clone(), auction.prices
         eps = max(eps / scaling_factor, eps_final)
 
 

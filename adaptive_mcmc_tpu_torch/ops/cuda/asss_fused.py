@@ -58,7 +58,11 @@ iteration counts tell how many).
 Dispatch depends on the state's device alone: CPU tensors run
 :func:`fused_asss_reference`, CUDA tensors launch the kernel or raise
 (``NotImplementedError`` for a target without a device potential, before
-anything runs).  ``launches`` counts kernel launches.
+anything runs).  ``launches`` counts kernel launches; each launch also
+counts ``k3.steps`` (transitions: steps × chains) and, while tracing is
+on, ``k3.iters`` (the chains' iterations, summed on the card) with
+``utils.profiling.count``, and the machine's blocks count
+``asss.machine_iters``.
 :func:`device_potential` evaluates a target's device potential alone on
 the card, to hold it against ``potential_fn``.
 """
@@ -78,6 +82,7 @@ from adaptive_mcmc_tpu_torch.ops.cuda import _build, check_device_potential
 from adaptive_mcmc_tpu_torch.ops.cuda.chol_update import (
     chol_update_cl_reference,
 )
+from adaptive_mcmc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -86,9 +91,6 @@ launches = 0
 # machine iterations per block: one CUDA graph replay, one host read of
 # `done`
 GRAPH_ITERS = 16
-# machine iterations run in this process by the blocks (a replay adds its
-# length); a profile reads it
-iterations = 0
 
 
 def sigma_cl(S: Tensor, eps: float) -> Tensor:
@@ -159,8 +161,7 @@ def rank1_guarded_cl(S: Tensor, delta: Tensor, gamma: Tensor) -> Tensor:
 
 
 def _count(n: int) -> None:
-    global iterations
-    iterations += n
+    profiling.count("asss.machine_iters", n)
 
 
 class Machine:
@@ -432,6 +433,9 @@ def _launch(target, config, state, n_steps: int, n_frames: int,
              torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, symbol)
     launches += 1
+    profiling.count("k3.steps", n_steps * C)
+    if profiling.tracing():
+        profiling.count("k3.iters", iters.sum())
     return _finish(st, frames, i0, n_steps, iters)
 
 

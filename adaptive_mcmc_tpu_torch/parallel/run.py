@@ -15,6 +15,10 @@ chains with the ordinary drivers:
    :func:`sharded_gelman_rubin`, written as the JAX package's are: partial
    sums over the process's block, then one all-reduce each over the mesh
    (:func:`_chain_sum`; JAX's ``psum``), O(params) numbers, never draws.
+
+:func:`run_mcmc_sharded` records the spans ``run_mcmc_sharded.warmup`` and
+``run_mcmc_sharded.collect`` per chunk and ``run_mcmc_sharded.gather``
+(``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from adaptive_mcmc_tpu_torch.parallel.mesh import (
     process_device,
     rank_generator,
 )
+from adaptive_mcmc_tpu_torch.utils import profiling
 
 
 def fan_state(state, fan: int):
@@ -174,7 +179,8 @@ def run_mcmc_sharded(
     done = 0
     while done < num_warmup:
         todo = min(cap, num_warmup - done)
-        state = advance(state, todo)
+        with profiling.span("run_mcmc_sharded.warmup", steps=todo):
+            state = advance(state, todo)
         done += todo
 
     if fan_out > 1:
@@ -187,8 +193,10 @@ def run_mcmc_sharded(
         collected = 0
         while collected < num_collect:
             todo = min(frames_per_call, num_collect - collected)
-            state, bufs = collect_n(state, todo, thinning, generator,
-                                    eager=eager)
+            with profiling.span("run_mcmc_sharded.collect",
+                                steps=todo * thinning):
+                state, bufs = collect_n(state, todo, thinning, generator,
+                                        eager=eager)
             # (C, F, ...) per chain -> (F, C, ...)
             chunks.append({f: bufs[f].transpose(0, 1) for f in fields})
             collected += todo
@@ -199,13 +207,16 @@ def run_mcmc_sharded(
                               dtype=getattr(state, f).dtype,
                               device=getattr(state, f).device)
                for f in fields}
-        for k in range(num_collect):
-            state = advance(state, thinning)
-            for f in fields:
-                out[f][k] = getattr(state, f)
+        with profiling.span("run_mcmc_sharded.collect",
+                            steps=num_collect * thinning):
+            for k in range(num_collect):
+                state = advance(state, thinning)
+                for f in fields:
+                    out[f][k] = getattr(state, f)
     if generator is not caller:
         caller.set_state(generator.get_state())
-    out = {f: gather_chains(v, mesh, dim=1) for f, v in out.items()}
+    with profiling.span("run_mcmc_sharded.gather"):
+        out = {f: gather_chains(v, mesh, dim=1) for f, v in out.items()}
     samples = out.pop(sample_field)
     return samples, out, state
 

@@ -18,7 +18,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from adaptive_mcmc_tpu_torch.infer.mcmc import map_state, state_tensors
+# the module, not its names: infer.mcmc imports utils (the recorder) and
+# may still be loading when this module is
+from adaptive_mcmc_tpu_torch.infer import mcmc
 
 
 def _structure(state: Any) -> str:
@@ -37,7 +39,7 @@ def save_state(path: str | Path, state: Any) -> None:
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     arrays = {f"leaf_{i}": t.detach().cpu().numpy()
-              for i, t in enumerate(state_tensors(state))}
+              for i, t in enumerate(mcmc.state_tensors(state))}
     np.savez_compressed(path, __structure__=np.array(_structure(state)),
                         **arrays)
 
@@ -51,8 +53,8 @@ def load_state(path: str | Path, like: Any) -> Any:
         if saved != _structure(like):
             raise ValueError(f"{path} holds {saved}, not {_structure(like)}")
         leaves = iter([data[f"leaf_{i}"]
-                       for i in range(len(state_tensors(like)))])
-    return map_state(
+                       for i in range(len(mcmc.state_tensors(like)))])
+    return mcmc.map_state(
         lambda t: torch.tensor(next(leaves), dtype=t.dtype, device=t.device),
         like)
 

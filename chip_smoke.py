@@ -373,6 +373,12 @@ POTENTIAL_OPS = {
 }
 
 
+def counted(name: str) -> int:
+    """The port's counter ``name`` (utils.profiling) so far."""
+    from adaptive_mcmc_tpu_torch.utils import profiling
+    return profiling.totals().get(name, 0)
+
+
 def require(ok, what: str) -> None:
     """A check that holds under ``python -O`` too."""
     if not ok:
@@ -1158,7 +1164,7 @@ def check_nuts_graph_equals_eager(amt, tn, card: str):
     runs = {}
     for eager in (True, False):
         g = torch.Generator("cuda").manual_seed(52)
-        tn.trips = 0
+        trips0 = counted("nuts.trips")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         s = k.step_n(init, NUTS_CHECK_STEPS, g, eager=eager)
@@ -1167,8 +1173,8 @@ def check_nuts_graph_equals_eager(amt, tn, card: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         runs[eager] = (state_tensors(s), list(frames.values()),
-                       torch.rand(8, generator=g, device="cuda"), tn.trips,
-                       wall, s)
+                       torch.rand(8, generator=g, device="cuda"),
+                       counted("nuts.trips") - trips0, wall, s)
     e, gr = runs[True], runs[False]
     require(all(torch.equal(a, b) for a, b in zip(e[0], gr[0])),
             "NUTS graph run's final state differs from the eager blocks'")
@@ -1206,16 +1212,17 @@ def nuts_block_trial(amt, tn, state, card: str) -> None:
             tn.GRAPH_TRIPS = block
             g = torch.Generator("cuda").manual_seed(53)
             k.step_n(state, 10, g)
-            tn.trips = 0
+            trips0 = counted("nuts.trips")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = k.step_n(state, NUTS_TRIAL_STEPS, g)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            trips = counted("nuts.trips") - trips0
             require(bool(torch.isfinite(out.position).all()), "NUTS trial")
             print(f"NUTS block trial: {block} trips per replay, step_n of "
-                  f"{NUTS_TRIAL_STEPS} at {NUTS_CHAINS} chains: {tn.trips} "
-                  f"trips, {wall / tn.trips * 1e3:.4f} ms per trip, "
+                  f"{NUTS_TRIAL_STEPS} at {NUTS_CHAINS} chains: {trips} "
+                  f"trips, {wall / trips * 1e3:.4f} ms per trip, "
                   f"{wall:.4f} s, {NUTS_CHAINS * NUTS_TRIAL_STEPS / wall:.1f}"
                   f" chain-iters/s on {card}")
     finally:
@@ -1228,13 +1235,13 @@ def run_nuts(amt, tn, name: str, warmup: int, samples: int, card: str):
     t = getattr(amt, name)()
     mcmc = amt.MCMC(amt.nuts(t), num_warmup=warmup, num_samples=samples,
                     n_chains=NUTS_CHAINS)
-    tn.trips = 0
+    trips0 = counted("nuts.trips")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     mcmc.run(torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    trips = tn.trips
+    trips = counted("nuts.trips") - trips0
     mcmc.print_summary()
     print(mcmc.diagnostics_str())
     draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
@@ -1293,7 +1300,7 @@ def profile_nuts(amt, tn, state, eager: bool, card: str) -> dict:
     k.step_n(state, 2, g, eager=eager)
     windows = []
     for profiled in (False, True):
-        tn.trips = 0
+        trips0 = counted("nuts.trips")
         torch.cuda.synchronize()
         ctx = profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if profiled \
@@ -1303,7 +1310,8 @@ def profile_nuts(amt, tn, state, eager: bool, card: str) -> dict:
             k.step_n(state, n, g, eager=eager)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        windows.append((wall * 1e3 / tn.trips, tn.trips, prof))
+        trips = counted("nuts.trips") - trips0
+        windows.append((wall * 1e3 / trips, trips, prof))
     (host_ms, _, _), (traced_ms, n_trips, prof) = windows
     n_kernels, busy_us = device_activity(prof, f"NUTS {name}", n_trips,
                                          "trip")
@@ -1444,6 +1452,7 @@ def check_metrics(amt, sets, card: str) -> dict:
     from scipy.optimize import linear_sum_assignment as scipy_lsap
     from adaptive_mcmc_tpu_torch.metrics import assignment as ta
     from adaptive_mcmc_tpu_torch.metrics import sliced as tsl
+    from adaptive_mcmc_tpu_torch.utils import profiling
     m = amt.metrics
     dev = torch.device("cuda")
     gold = torch.tensor(gold_draws(amt), dtype=torch.float32, device=dev)
@@ -1465,7 +1474,7 @@ def check_metrics(amt, sets, card: str) -> dict:
     rows = torch.arange(n, device=dev)
     auction = {}
     for label, init in (("cold", None), ("warm", "cold")):
-        before = ta.graph_replays
+        before = profiling.totals().get("graph.replays", 0)
         (col, prices), secs = timed(lambda: ta.auction_assignment_batch(
             costs, return_prices=True,
             prices_init=None if init is None else auction[init][1]))
@@ -1483,7 +1492,8 @@ def check_metrics(amt, sets, card: str) -> dict:
         times[f"auction {label}"] = secs
         print(f"auction {label}, B = {S}, n = m = {n}: {secs:.3f} s, "
               f"{rounds} rounds ({levels_line(ta)}), "
-              f"{ta.graph_replays - before} graph replays; W "
+              f"{profiling.totals()['graph.replays'] - before} graph "
+              f"replays; W "
               f"{[round(v, 6) for v in w]}; dual certificate (D - P)/n max "
               f"{max(gaps):.3e} <= ε_final {eps_final:.3e}; on {card}")
     print("diagnostics metrics on the diamonds sets (d = 26) against the "
@@ -1791,7 +1801,11 @@ def profile_asss_machine(amt, name: str, state, card: str) -> dict:
     iteration under torch.profiler over a second window; idle share as in
     profile_lockstep, beside the eager machine's row."""
     from torch.profiler import ProfilerActivity, profile
-    m = importlib.import_module("adaptive_mcmc_tpu_torch.ops.cuda.asss_fused")
+    from adaptive_mcmc_tpu_torch.utils import profiling
+
+    def iterations() -> int:
+        return profiling.totals().get("asss.machine_iters", 0)
+
     k = amt.asss(getattr(amt, name)(),
                  amt.ASSSConfig(num_warmup=ASSS_PROFILE_WARMUP))
     g = torch.Generator("cuda").manual_seed(8)
@@ -1804,11 +1818,11 @@ def profile_asss_machine(amt, name: str, state, card: str) -> dict:
             else contextlib.nullcontext()
         with ctx as prof:
             torch.cuda.synchronize()
-            i0, t0 = m.iterations, time.perf_counter()
+            i0, t0 = iterations(), time.perf_counter()
             state = k.step_n(state, n, g)
             torch.cuda.synchronize()
             windows.append(((time.perf_counter() - t0) * 1e3 / n,
-                            (m.iterations - i0) / n))
+                            (iterations() - i0) / n))
     iters = windows[1][1]
     n_kernels, busy_us = device_activity(prof, f"ASSS machine {name}",
                                          n, "step")
@@ -2260,23 +2274,23 @@ def shrink_trial(amt, card: str) -> None:
                                   "asss.step")
             p = drive.advance(start, 5)
             torch.cuda.synchronize()
-            trips0, t0 = ta.trips, time.perf_counter()
+            trips0, t0 = counted("asss.trips"), time.perf_counter()
             p = drive.advance(p["s"], SHRINK_TRIAL_STEPS)
             torch.cuda.synchronize()
             ms10 = (time.perf_counter() - t0) * 1e3 / SHRINK_TRIAL_STEPS
-            run10 = (ta.trips - trips0) / SHRINK_TRIAL_STEPS
+            run10 = (counted("asss.trips") - trips0) / SHRINK_TRIAL_STEPS
             mean10 = float(p["total"].mean()) / SHRINK_TRIAL_STEPS
             amt.sample_pnx(kf, 0, X, adapt, n=ROLLOUT_N,
                            n_samples=ROLLOUT_SAMPLES)
             torch.cuda.synchronize()
-            trips0, t0 = ta.trips, time.perf_counter()
+            trips0, t0 = counted("asss.trips"), time.perf_counter()
             for s in range(1, SHRINK_TRIAL_ROLLOUTS + 1):
                 amt.sample_pnx(kf, s, X, adapt, n=ROLLOUT_N,
                                n_samples=ROLLOUT_SAMPLES)
             torch.cuda.synchronize()
             steps1 = SHRINK_TRIAL_ROLLOUTS * ROLLOUT_N
             ms1 = (time.perf_counter() - t0) * 1e3 / steps1
-            run1 = (ta.trips - trips0) / steps1
+            run1 = (counted("asss.trips") - trips0) / steps1
             rows.append((block, ms10, ms1))
             print(f"SHRINK_TRIPS trial, {block} trips per block: eight "
                   f"schools at {N_CHAINS} chains {ms10:.4f} ms per step "
@@ -2348,11 +2362,10 @@ def run_figures(amt, counters, card: str) -> int:
     (figures.theory_gates).  Returns K1's launches."""
     import shutil
     F = importlib.import_module("adaptive_mcmc_tpu_torch.analysis.figures")
-    im = importlib.import_module("adaptive_mcmc_tpu_torch.infer.mcmc")
     k1, k2, k3 = counters
     shutil.rmtree(FIGURES_DIR, ignore_errors=True)
     reset_launches(*counters)
-    im.rollout_devices.clear()
+    before = {d: counted(f"rollouts.{d}") for d in ("cpu", "cuda")}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     seconds = F.main(FIGURES_DIR, device="cuda", data_only=True)
@@ -2365,7 +2378,7 @@ def run_figures(amt, counters, card: str) -> int:
         size = (FIGURES_DIR / f"{name}.npz").stat().st_size
         print(f"figures {name}: data in {secs:.3f} s ({size} bytes) on "
               f"{card}")
-    devices = dict(im.rollout_devices)
+    devices = {d: counted(f"rollouts.{d}") - n for d, n in before.items()}
     require(devices.get("cpu", 0) == 0 and devices.get("cuda", 0) > 0,
             f"figures: sample_pnx rollouts by device {devices}")
     require(k1.launches > 0 and k2.launches == k3.launches == 0,

@@ -23,6 +23,7 @@ from adaptive_mcmc_tpu_torch.ops.cholesky import (  # noqa: E402
     adaptive_scale_update_cl,
 )
 from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3  # noqa: E402
+from adaptive_mcmc_tpu_torch.utils import profiling  # noqa: E402
 from test_torch_asss_fused import (  # noqa: E402
     NAMES,
     _inputs,
@@ -56,11 +57,11 @@ def test_pipelined_machine_matches_jax_machine_injected(monkeypatch, block):
     machine = k3.Machine(amt.eight_schools_noncentered(),
                          amt.ASSSConfig(num_warmup=10),
                          adaptive_scale_update_cl)
-    before = k3.iterations
+    before = profiling.totals().get("asss.machine_iters", 0)
     got_state, got, iters = machine.run(
         _torch_state(state), F * thin, F, thin,
         unif3=torch.from_numpy(unif3), n01=torch.from_numpy(n01))
-    ran = k3.iterations - before
+    ran = profiling.totals()["asss.machine_iters"] - before
     assert ran % block == 0 and ran >= int(iters.max()) - 1
     for g, w, name in zip(got_state, want_state, NAMES):
         assert_close_normwise(g.numpy(), w, name)

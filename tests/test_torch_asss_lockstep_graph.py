@@ -45,6 +45,7 @@ from adaptive_mcmc_tpu_torch.ops.cholesky import (  # noqa: E402
     adaptive_scale_update,
 )
 from adaptive_mcmc_tpu_torch.ops.cuda.asss_fused import TWO_PI  # noqa: E402
+from adaptive_mcmc_tpu_torch.utils import profiling  # noqa: E402
 
 tasss = importlib.import_module("adaptive_mcmc_tpu_torch.kernels.asss")
 RTOL, ATOL = 1e-4, 1e-5
@@ -222,12 +223,12 @@ def test_generator_step_equals_per_trip_loop(monkeypatch, block):
     t, cfg = amt.gaussian_mixture_1d(), amt.ASSSConfig(adapt=False)
     k = amt.asss(t, cfg)
     state = k.init(torch.Generator().manual_seed(2), n_chains=64)
-    before = tasss.trips
+    before = profiling.totals().get("asss.trips", 0)
     got = k.step(state, torch.Generator().manual_seed(5))
     want, trips = _per_trip_step(t, cfg, state,
                                  torch.Generator().manual_seed(5))
     assert _equal(got, want)
-    run = tasss.trips - before
+    run = profiling.totals()["asss.trips"] - before
     assert run % block == 0 and int(trips.max()) <= run \
         < int(trips.max()) + block
 

@@ -20,6 +20,7 @@ from adaptive_mcmc_tpu_torch.ops.cuda import _build  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1  # noqa: E402
+from adaptive_mcmc_tpu_torch.utils import profiling  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -718,13 +719,13 @@ def test_auction_graph_equals_eager_and_the_cpu(cuda):
     costs = torch.stack([amt.metrics.minkowski_cost_matrix(
         torch.tensor(_clouds_np(600, 4, s)[1]), torch.tensor(ref))
         for s in (1, 2, 3)])
-    before = ta.graph_replays
+    before = profiling.totals().get("graph.replays", 0)
     cg, pg = ta.auction_assignment_batch(costs.to(cuda), return_prices=True)
-    assert ta.graph_replays > before
-    replays = ta.graph_replays
+    assert profiling.totals()["graph.replays"] > before
+    replays = profiling.totals()["graph.replays"]
     ce, pe = ta.auction_assignment_batch(costs.to(cuda), return_prices=True,
                                          eager=True)
-    assert ta.graph_replays == replays
+    assert profiling.totals()["graph.replays"] == replays
     assert torch.equal(cg, ce) and torch.equal(pg, pe)
     cc, pc = ta.auction_assignment_batch(costs, return_prices=True)
     assert torch.equal(cg.cpu(), cc) and torch.equal(pg.cpu(), pc)
@@ -922,12 +923,17 @@ def test_asss_lockstep_run_from_the_graph_equals_the_eager_blocks(cuda):
     assert all(torch.equal(a, b) for a, b in zip(e[:-1], gr[:-1]))
 
 
+def _rollout_devices() -> set:
+    """The device types sample_pnx's rollouts ran on since the recorder
+    was cleared."""
+    return {k.split(".", 1)[1] for k in profiling.totals()
+            if k.startswith("rollouts.")}
+
+
 def test_asss_probe_and_seeded_rollout_from_the_graph(cuda):
     """probe from the graphs equals probe(eager=True); a seeded frozen-ASSS
     sample_pnx (captured, then replayed) equals its eager loop and runs
     on the card."""
-    from adaptive_mcmc_tpu_torch.infer import mcmc as im
-
     mix = amt.gaussian_mixture_1d()
     k = amt.asss(mix, amt.ASSSConfig(adapt=False))
     s0 = k.init(torch.Generator("cuda").manual_seed(0), n_chains=4096)
@@ -937,22 +943,115 @@ def test_asss_probe_and_seeded_rollout_from_the_graph(cuda):
                                                    b[0].position)
     kf, adapt = amt.analysis.frozen_asss(mix, loc=1.0, device=cuda)
     x = torch.linspace(-2, 2, 20, device=cuda)[:, None]
-    im.rollout_devices.clear()
+    profiling.clear()
     g1 = amt.sample_pnx(kf, 5, x, adapt, n=4, n_samples=500)
     g2 = amt.sample_pnx(kf, 5, x, adapt, n=4, n_samples=500)
     e = amt.sample_pnx(kf, 5, x, adapt, n=4, n_samples=500, eager=True)
     assert torch.equal(g1, e) and torch.equal(g2, e)
-    assert set(im.rollout_devices) == {"cuda"}
+    assert _rollout_devices() == {"cuda"}
 
 
 def test_figure_data_on_the_card(cuda):
     """Two families' data at small sizes on the card: every rollout on
     the CUDA device, the theory gates of the invariance family held."""
     from adaptive_mcmc_tpu_torch.analysis import figures as tf
-    from adaptive_mcmc_tpu_torch.infer import mcmc as im
 
-    im.rollout_devices.clear()
+    profiling.clear()
     inv = tf.data_invariance(device="cuda", n=100_000)
     tf.data_x_step(device="cuda", n_samples=2000, n_points=10)
-    assert set(im.rollout_devices) == {"cuda"}
+    assert _rollout_devices() == {"cuda"}
     assert all(g[3] for g in tf.theory_gates({"invariance": inv}))
+
+
+# -- the recorder of spans and counters on the card ------------------------
+
+def _inside(span, ev) -> bool:
+    start = ev.start_ns()
+    return span.start_ns <= start and start + ev.duration_ns() <= span.end_ns
+
+
+def test_spans_share_the_device_timeline(cuda):
+    """Under a CPU + CUDA profiler the recorded spans hold, on the trace's
+    own clock, what ran in them: the CUDA runtime's begin and end of the
+    capture in run_mcmc's graph.capture span, and the device interval of
+    one K1 launch in a span closed by a synchronize (the launch before it,
+    also synchronised, falls outside).  No span is drawn on the device's
+    timeline, where a measure of the device's busy time would count it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    k = amt.arwmh(amt.eight_schools_noncentered(),
+                  amt.ARWMHConfig(num_warmup=4))
+    Lt, vt, coef = _chol_inputs(512, 10, cuda)
+
+    def run(seed):
+        amt.run_mcmc(k, torch.Generator(cuda).manual_seed(seed), 4, 8,
+                     thinning=4, n_chains=64)
+        torch.cuda.synchronize()
+
+    run(1)                                   # builds and warms the kernels
+    k1.chol_update_cl(Lt, vt, coef)
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(2)
+        k1.chol_update_cl(Lt, vt, coef)
+        torch.cuda.synchronize()
+        with profiling.span("k1.launch"):
+            k1.chol_update_cl(Lt, vt, coef)
+            torch.cuda.synchronize()
+    spans = profiling.spans()
+    events = prof.profiler.kineto_results.events()
+    (capture,) = [s for s in spans if s.name == "graph.capture"]
+    assert capture.attrs == {"label": "arwmh.step"}
+    runtime = [ev for ev in events
+               if ev.name().startswith(("cudaStreamBeginCapture",
+                                        "cudaStreamEndCapture"))]
+    assert len(runtime) == 2
+    assert all(_inside(capture, ev) for ev in runtime)
+    (launch,) = [s for s in spans if s.name == "k1.launch"]
+    k1_device = sorted((ev for ev in events
+                        if ev.device_type() == DeviceType.CUDA
+                        and "chol_update_cl_kernel" in ev.name()),
+                       key=lambda ev: ev.start_ns())
+    assert len(k1_device) == 2
+    assert [_inside(launch, ev) for ev in k1_device] == [False, True]
+    names = {s.name for s in spans}
+    assert not [ev.name() for ev in events
+                if ev.device_type() == DeviceType.CUDA and ev.name() in names]
+
+
+def test_k3_iters_counted_without_a_host_read(cuda):
+    """K3's launch counts k3.steps (steps x chains) and, while tracing is
+    on, k3.iters, the sum of its chains' iterations, added on the card: the
+    launch makes no host sync while it is recorded, and the count read
+    afterwards equals int(iters.sum()).  With tracing off it counts
+    k3.steps alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = amt.eight_schools_noncentered()
+    cfg = amt.ASSSConfig(num_warmup=8)
+    C, rows, n = 256, 512, 16
+    g, state = _asss_state(t, C, cuda, 0)
+    unif3 = torch.rand((rows, 3, C), generator=g, device=cuda) \
+        .clamp_(1e-6, 1 - 1e-6)
+    n01 = torch.randn((rows, t.dim + 1, C), generator=g, device=cuda)
+    k3._launch(t, cfg, state, n, 0, 1, None, unif3, n01)    # warm
+    torch.cuda.synchronize()
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        with profiling.span("k3"):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                _, _, iters = k3._launch(t, cfg, state, n, 0, 1, None,
+                                         unif3, n01)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    (span,) = profiling.spans()
+    assert span.counts == {"k3.steps": n * C, "k3.iters": int(iters.sum())}
+    assert profiling.totals() == span.counts
+    assert int(iters.sum()) >= n * C
+    profiling.clear()
+    k3._launch(t, cfg, state, n, 0, 1, None, unif3, n01)
+    assert profiling.totals() == {"k3.steps": n * C}
