@@ -14,28 +14,32 @@ backends behind one dispatch:
   Wasserstein (ε_final = range / (2n) by default).
 
 The JAX round is gather- and scatter-free because the TPU serialises both.
-On the GPU they are native, so a round here gathers the bidding rows'
-benefit rows, takes each column's best bid with ``scatter_reduce("amax")``,
-breaks ties with an ``amin`` over the rows whose bid equals it, and finds
-the displaced owners through the column-to-owner map.  A round reads
-nothing on the host and makes no shape that depends on data: the first
-``block`` unassigned rows, in ascending order, come from a cumsum
-compaction.  So on a CUDA device blocks of ``ROUNDS_PER_GRAPH`` rounds
-replay from a CUDA graph (one per block width and solve), and the host reads
-the count of unassigned rows only between blocks; rounds after it reaches
-0 are no-ops, since no row bids.  ``eager=True`` runs the same rounds in a
-Python loop.  A round's temporaries are O(B · block · m).
+Here a round (``ops/cuda/auction.py``) is one launch of a hand-written
+kernel on a CUDA device and the plain PyTorch round on the CPU, with the
+same bits: the first ``block`` unassigned rows of each instance, in
+ascending order, bid; each column takes its highest bid, the lowest row
+among equal ones, and its previous owner returns to the pool.  A round
+reads nothing on the host and makes no shape that depends on data.  So on
+a CUDA device blocks of ``ROUNDS_PER_GRAPH`` rounds replay from a CUDA
+graph (one per block width and solve), and the host reads the count of
+unassigned rows only between blocks; rounds after it reaches 0 are
+no-ops, since no row bids.  ``eager=True`` launches the same rounds from a
+Python loop.
 
 Spans and counters (``utils.profiling``): ``auction.solve`` per solve and
 ``auction.level`` per ε level, ``graph.capture`` around a block's capture;
-``auction.rounds``, ``graph.replays`` and ``host.reads`` (the count of
-unassigned rows between blocks, and the final check).
+``auction.rounds``, ``auction.kernel_rounds`` (the kernel's launches in
+each block, graph replays included: all the rounds on a CUDA device, none
+on the CPU), ``graph.replays``
+and ``host.reads`` (the count of unassigned rows between blocks, and the
+final check).
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -47,6 +51,8 @@ import numpy as np
 import torch
 
 from adaptive_mcmc_tpu_torch.infer.mcmc import _HostRead, _NoHostRead
+from adaptive_mcmc_tpu_torch.ops.cuda import CapturedLaunches
+from adaptive_mcmc_tpu_torch.ops.cuda import auction as kernel
 from adaptive_mcmc_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
@@ -178,20 +184,21 @@ def _block_tier(left: int, block: int, rounds_per_call: int):
 class _Auction:
     """The buffers and the rounds of one auction over ``benefit`` (B, n, m).
     ``row_to_col`` has one more slot per instance than rows: a sink for the
-    lanes of a scatter that write nothing."""
+    lanes of the plain round's scatters that write nothing.  The kernel's
+    scratch is allocated here, once."""
 
     def __init__(self, benefit: Tensor, prices: Tensor, eager: bool):
         B, n, m = benefit.shape
         dev = benefit.device
-        self.benefit = benefit
-        self.prices = prices.clone()
+        self.benefit = benefit.contiguous()
+        self.prices = prices.clone(memory_format=torch.contiguous_format)
         self.col_owner = torch.full((B, m), -1, dtype=torch.int64,
                                     device=dev)
         self.row_to_col = torch.full((B, n + 1), -1, dtype=torch.int64,
                                      device=dev)
         self.eps = torch.zeros((), device=dev)
         self.live = torch.zeros((B,), dtype=torch.int64, device=dev)
-        self.rows = torch.arange(n, device=dev).expand(B, n)
+        self.scratch = kernel.new_scratch(B, n, m, dev)
         self.eager = eager
         self.graphs: dict = {}
         self.checked = False
@@ -212,44 +219,14 @@ class _Auction:
         return int(self.unassigned().sum(dim=1).max())
 
     def round(self, block: int) -> None:
-        """One round: the first ``block`` unassigned rows of each instance
-        bid on their best column at its second-best margin plus ε; each
-        column takes its highest bid (the lowest row among equal ones) and
-        its previous owner returns to the pool."""
-        B, n, m = self.benefit.shape
-        dev = self.benefit.device
-        un = self.unassigned()                                   # (B, n)
-        self.live += un.any(dim=1)
-        pos = torch.cumsum(un, dim=1) - 1
-        slot = torch.where(un & (pos < block), pos, block)
-        idx = torch.full((B, block + 1), n, dtype=torch.int64, device=dev)
-        idx.scatter_(1, slot, self.rows)
-        idx = idx[:, :block]                 # ascending, padded with n
-        valid = idx < n
-        safe = torch.clamp_max(idx, n - 1)
-        vals = torch.gather(self.benefit, 1,
-                            safe[:, :, None].expand(B, block, m))
-        vals -= self.prices[:, None, :]                          # (B, K, m)
-        v1, j1 = torch.max(vals, dim=2)      # j1: the first best column
-        vals.scatter_(2, j1[:, :, None], float("-inf"))
-        v2 = torch.amax(vals, dim=2)
-        bid = torch.gather(self.prices, 1, j1) + (v1 - v2) + self.eps
-        bid = bid.masked_fill(~valid, float("-inf"))
-        win_bid = torch.full((B, m), float("-inf"), device=dev) \
-            .scatter_reduce_(1, j1, bid, "amax")
-        got = torch.isfinite(win_bid)
-        tied = bid == torch.gather(win_bid, 1, j1)
-        win_row = torch.full((B, m), n, dtype=torch.int64, device=dev) \
-            .scatter_reduce_(1, j1, torch.where(tied, idx, n), "amin")
-        win_row = torch.where(got, win_row, n)
-        prev = self.col_owner
-        displaced = got & (prev >= 0) & (prev != win_row)
-        self.row_to_col.scatter_(1, torch.where(displaced, prev, n), -1)
-        won = valid & (torch.gather(win_row, 1, j1) == idx)
-        self.row_to_col.scatter_(1, torch.where(won, idx, n),
-                                 torch.where(won, j1, -1))
-        self.col_owner.copy_(torch.where(got, win_row, prev))
-        self.prices.copy_(torch.where(got, win_bid, self.prices))
+        """One round (``ops/cuda/auction.py``): the first ``block``
+        unassigned rows of each instance bid on their best column at its
+        second-best margin plus ε; each column takes its highest bid (the
+        lowest row among equal ones) and its previous owner returns to the
+        pool."""
+        kernel.auction_round(self.benefit, self.prices, self.row_to_col,
+                             self.col_owner, self.eps, self.live, block,
+                             self.scratch)
 
     def _rounds(self, k: int, block: int) -> None:
         for _ in range(k):
@@ -271,17 +248,19 @@ class _Auction:
         if self.eager or not self.benefit.is_cuda:
             self._rounds(k, block)
             return
-        graph = self.graphs.get((k, block))
-        if graph is None:
+        captured = self.graphs.get((k, block))
+        if captured is None:
             self._rounds(k, block)
             with profiling.span("graph.capture", label="auction", rounds=k,
-                                block=block):
+                                block=block), CapturedLaunches() as rec:
                 graph = torch.cuda.CUDAGraph()
                 with torch.cuda.graph(graph):
                     self._rounds(k, block)
-            self.graphs[(k, block)] = graph
+            self.graphs[(k, block)] = (graph, rec)
             return
+        graph, rec = captured
         graph.replay()
+        rec.replayed()
         profiling.count("graph.replays")
 
     def chunk(self, rounds: int, block: int) -> int:
@@ -291,8 +270,13 @@ class _Auction:
         done = 0
         while done < rounds:
             k = min(ROUNDS_PER_GRAPH, rounds - done)
+            launched = kernel.launches
             self._block(k, block)
             profiling.count("auction.rounds", k)
+            # the kernel's launches in the block: eager ones and, per
+            # replay, those its graph recorded
+            profiling.count("auction.kernel_rounds",
+                            kernel.launches - launched)
             done += k
             if self.left() == 0:
                 break
@@ -320,6 +304,9 @@ def _levels(costs: Tensor, eps_final, scaling_factor: float,
     global last_levels
     B, n, m = costs.shape
     rng = float(torch.max(costs) - torch.min(costs))
+    if not math.isfinite(rng):
+        raise ValueError("the auction needs finite costs: the cost "
+                         "matrix holds a NaN or an infinity")
     if eps_final is None:
         # mean assigned cost within range / (2n) of optimal
         eps_final = max(rng, 1e-6) / (2.0 * n)

@@ -4,7 +4,8 @@ wrapper runs for CPU tensors, and a launch counter:
 
 * ``chol_update`` — K1, the batched rank-1 Cholesky update;
 * ``arwmh_fused`` — K2, the fused ARWMH sweep;
-* ``asss_fused`` — K3, the fused ASSS sweep.
+* ``asss_fused`` — K3, the fused ASSS sweep;
+* ``auction`` — the ε-auction's round (``metrics/assignment.py``).
 
 A wrapper adds one to its module's ``launches`` where it launches its kernel.
 Nothing else writes a count, with one exception: a launch recorded into a
@@ -14,7 +15,7 @@ captures one counts it so (:class:`CapturedLaunches`).
 
 import importlib
 
-KERNEL_MODULES = ("chol_update", "arwmh_fused", "asss_fused")
+KERNEL_MODULES = ("chol_update", "arwmh_fused", "asss_fused", "auction")
 
 # The device potentials (csrc/common.cuh) each fused sweep is built for, by
 # the tag a target builder sets (Target.device_potential) when its

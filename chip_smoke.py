@@ -74,8 +74,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    max_sliced_wasserstein (1000 directions) and the batched ε-auction
    (B = 8, n = m = 10000, cold, then warm-started from its own prices:
    rounds per ε level, the dual certificate (D − P)/n ≤ ε_final in
-   float64, a permutation each), ms per auction round at block 1024, 128
-   and 16 from the CUDA graph and eagerly; at n = 1000 the auction from the
+   float64, a permutation each; every round through the auction kernel:
+   its launches and auction.kernel_rounds equal auction.rounds), ms per
+   round of the auction kernel against the plain round at block 1024, 128
+   and 16 for B = 8 and n = m = 625 and 10000, each beside its bound (the
+   bytes it reads over 3.35 TB/s), and before each timing the kernel's
+   rounds against the plain round's, bit for bit after each of 48 rounds
+   from zero and from solved prices; at n = 1000 the auction from the
    graph against eager=True bit for bit and within ε_final of the port's
    native Hungarian, which equals SciPy's cost, and each metric on the card
    against the CPU (rtol 1e-4); the Lipschitz-NN τ of the AR(1) kernel at
@@ -201,7 +206,7 @@ PROFILE_STEPS = {"eager": 200, "graph": 1000}
 # chains: the first update per chain, the next two per candidate
 K1_SA_SHAPES = ((1024, 10), (104448, 10))
 K1_SHAPES = ((4096, 10), (1024, 26), (417792, 10)) + K1_SA_SHAPES
-KERNELS = ("chol_update", "arwmh_fused", "asss_fused")
+KERNELS = ("chol_update", "arwmh_fused", "asss_fused", "auction")
 # the slice: ASSS on diamonds through K3, sized from the JAX package's ASSS
 # on the CPU (64 chains, pipelined driver), which needed 200000 warmup
 # steps before the gold bands held (PERF.md)
@@ -244,11 +249,16 @@ DRIVER_CHAINS, DRIVER_WARMUP, DRIVER_SAMPLES, DRIVER_CHUNK = 64, 100, 400, 200
 # from each phase-7 diamonds run, against the gold draws); the checks
 # against the Hungarian, SciPy, the CPU and eager at DIAG_CHECK_N (Sinkhorn
 # and the exact W against the CPU on DIAG_SINKHORN_CPU sets: the CPU's
-# Sinkhorn at n = 1000 takes about a second per set); the timed auction
-# rounds
+# Sinkhorn at n = 1000 takes about a second per set); the rounds of the
+# auction's profiled window
 DIAG_N, DIAG_SETS_PER_RUN, DIAG_FRAMES = 10000, 4, 40
 DIAG_CHECK_N, DIAG_SINKHORN_CPU, DIAG_RTOL = 1000, 2, 1e-4          # time
-DIAG_DIRECTIONS, DIAG_TIMED_ROUNDS, DIAG_PROFILED_ROUNDS = 1000, 256, 64
+DIAG_DIRECTIONS, DIAG_PROFILED_ROUNDS = 1000, 64
+# the auction round's timed shapes (n = m, B = 8) and block widths; the
+# counters every round of a solve on the card adds to
+AUCTION_ROUND_NS, AUCTION_ROUND_BLOCKS = (625, 10000), (1024, 128, 16)
+AUCTION_MATCH_ROUNDS = 48   # rounds of the kernel held to the plain round
+AUCTION_COUNTERS = ("auction.rounds", "auction.kernel_rounds")
 # the AR(1) kernel (tests/test_contraction.py's band) at the estimator's
 # defaults; frozen ARWMH and ASSS at figures.py's sizes; the decay curves;
 # invariance at the notebook's size
@@ -357,6 +367,8 @@ MP_WORKER = "--multi-process-worker"
 # the TPU kernels the instantiations replace
 K2_REPLACES = "adaptive_mcmc_tpu/ops/pallas/arwmh_fused.py:426"
 K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
+# the auction kernel replaces no Pallas kernel: the JAX round is XLA
+AUCTION_REPLACES = "none (adaptive_mcmc_tpu/metrics/assignment.py, XLA)"
 K1_REPLACES = "adaptive_mcmc_tpu/ops/pallas/chol_update.py:107"
 TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq",
            "diamonds")
@@ -1452,6 +1464,7 @@ def check_metrics(amt, sets, card: str) -> dict:
     from scipy.optimize import linear_sum_assignment as scipy_lsap
     from adaptive_mcmc_tpu_torch.metrics import assignment as ta
     from adaptive_mcmc_tpu_torch.metrics import sliced as tsl
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
     from adaptive_mcmc_tpu_torch.utils import profiling
     m = amt.metrics
     dev = torch.device("cuda")
@@ -1473,8 +1486,11 @@ def check_metrics(amt, sets, card: str) -> dict:
         [m.minkowski_cost_matrix(x, gold) for x in xs]))
     rows = torch.arange(n, device=dev)
     auction = {}
+    launched_at_start = ak.launches
     for label, init in (("cold", None), ("warm", "cold")):
         before = profiling.totals().get("graph.replays", 0)
+        counts = {c: profiling.totals().get(c, 0) for c in AUCTION_COUNTERS}
+        launched = ak.launches
         (col, prices), secs = timed(lambda: ta.auction_assignment_batch(
             costs, return_prices=True,
             prices_init=None if init is None else auction[init][1]))
@@ -1489,11 +1505,19 @@ def check_metrics(amt, sets, card: str) -> dict:
                 f"auction ({label}): (D - P)/n {max(gaps)} > ε_final "
                 f"{eps_final}")
         rounds = sum(r for _, r, _ in ta.last_levels)
+        counts = {c: profiling.totals().get(c, 0) - counts[c]
+                  for c in AUCTION_COUNTERS}
+        require(counts["auction.rounds"] == rounds
+                and counts["auction.kernel_rounds"] == rounds
+                and ak.launches - launched == rounds,
+                f"auction ({label}): {rounds} rounds, counters {counts}, "
+                f"launches {ak.launches - launched}")
         times[f"auction {label}"] = secs
         print(f"auction {label}, B = {S}, n = m = {n}: {secs:.3f} s, "
               f"{rounds} rounds ({levels_line(ta)}), "
               f"{profiling.totals()['graph.replays'] - before} graph "
-              f"replays; W "
+              f"replays, auction kernel launches {ak.launches - launched}, "
+              f"auction.kernel_rounds {counts['auction.kernel_rounds']}; W "
               f"{[round(v, 6) for v in w]}; dual certificate (D - P)/n max "
               f"{max(gaps):.3e} <= ε_final {eps_final:.3e}; on {card}")
     print("diagnostics metrics on the diamonds sets (d = 26) against the "
@@ -1503,10 +1527,17 @@ def check_metrics(amt, sets, card: str) -> dict:
           f"{[round(v, 6) for v in msw]}")
     print("diagnostics metric seconds on " + card + ": " + ", ".join(
         f"{k} {v:.3f}" for k, v in times.items()))
-    timing = auction_round_times(ta, costs, auction["cold"][1], card)
+    timed_from = ak.launches
+    timing = auction_round_times(ta, ak, costs, auction["cold"][1], card)
     del costs
+    # the timing's graphs count a launch per capture, not per replay: the
+    # kernels line counts the solves' launches only
+    resumed_at = ak.launches
     check_small(amt, ta, tsl, xs[:, :DIAG_CHECK_N], gold[:DIAG_CHECK_N],
                 scipy_lsap, card)
+    timing["launches"] = timed_from - launched_at_start \
+        + ak.launches - resumed_at
+    print(f"auction kernel launches in the solves: {timing['launches']}")
     return timing
 
 
@@ -1578,32 +1609,87 @@ def check_small(amt, ta, tsl, xs, gold, scipy_lsap, card: str) -> None:
               f"{k} {v:.2e}" for k, v in errs.items()))
 
 
-def auction_round_times(ta, costs, prices, card: str) -> dict:
-    """ms per auction round at each block width of the ladder (B = 8,
-    n = 10000, from a fresh assignment at ε_final · 10), from the graph and
-    eagerly: host clock around DIAG_TIMED_ROUNDS rounds.  Returns the
-    auction object for the profiled window at the end."""
-    auction = ta._Auction(-costs, prices, eager=False)
-    eps = ta.last_levels[-1][0] * 10.0
-    out = {"auction": auction, "ms": {}}
-    k = ta.ROUNDS_PER_GRAPH
-    for width in (1024, 128, 16):
-        for eager in (True, False):
-            auction.eager = eager
-            auction.reset(eps)
-            auction._block(k, width)          # warm, and capture
-            auction._block(k, width)          # the graph's first replay
-            blocks = DIAG_TIMED_ROUNDS // k
-            _, secs = timed(lambda: [auction._block(k, width)
-                                     for _ in range(blocks)])
-            out["ms"][(width, eager)] = secs * 1e3 / (blocks * k)
+def auction_round_times(ta, ak, costs, prices, card: str) -> dict:
+    """ms per auction round, the kernel against the plain round, at each
+    block width of the ladder, B = 8, for n = m = 625 (the leading corner
+    of the diagnostics' costs) and 10000: CUDA events around graph
+    replays (device_ms) of a reset and a round, less those of the reset
+    alone, so every round starts from an empty assignment and min(block,
+    n) rows bid.  Beside each, its bound: the bytes a round reads (the
+    bidders' benefit rows, the prices, the assignment) over 3.35 TB/s.
+    Before the timing of each, the kernel's rounds against the plain
+    round's (:func:`auction_rounds_match`).  Returns the kernels-line
+    result at the grade's shape (n = 625, block 16) and the auction at
+    n = 10000 for the profiled window at the end."""
+    out = {}
+    for n in AUCTION_ROUND_NS:
+        benefit = -costs[:, :n, :n].contiguous()
+        start = prices[:, :n].contiguous()
+        auction = ta._Auction(benefit, start, eager=True)
+        twin = ta._Auction(benefit, start, eager=True)
+        B = benefit.shape[0]
+        eps = ta.last_levels[-1][0] * 10.0
+
+        def plain(width):
+            ak.auction_round_reference(
+                auction.benefit, auction.prices, auction.row_to_col,
+                auction.col_owner, auction.eps, auction.live, width)
+
+        for width in AUCTION_ROUND_BLOCKS:
+            K = min(width, n)
+            matched = []
+            for label, p0 in (("zero", torch.zeros_like(start)),
+                              ("solved", start)):
+                bad = auction_rounds_match(auction, twin, ak, width, eps, p0)
+                require(bad == 0,
+                        f"auction round, B = {B}, n = m = {n}, block "
+                        f"{width}, from {label} prices: the kernel differs "
+                        f"from the plain round after round {bad}")
+                matched.append(label)
+            auction.prices.copy_(start)
+            reps = 20 if K * n > 1_000_000 else 100
+            reset_ms = device_ms(lambda: auction.reset(eps), reps)
+            ms = {}
+            for name, fn in (("kernel", auction.round), ("plain", plain)):
+                ms[name] = device_ms(
+                    lambda: (auction.reset(eps), fn(width)), reps) - reset_ms
+            b = bound(B * (4 * K * n + 4 * n + 8 * (n + 1)), 2 * B * K * n)
+            out[(n, width)] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                               **b}
+            print(f"auction round, B = {B}, n = m = {n}, block {width} "
+                  f"({K} bidders): kernel {ms['kernel']:.6f} ms, plain "
+                  f"{ms['plain']:.6f} ms ({ms['plain'] / ms['kernel']:.1f}x),"
+                  f" bound {b['bound_ms']:.6f} ms by {b['bound_by']} "
+                  f"({ms['kernel'] / b['bound_ms']:.1f}x the bound); reset "
+                  f"{reset_ms:.6f} ms; equal to the plain round bit for bit "
+                  f"(row_to_col, col_owner, prices, live) after each of "
+                  f"{AUCTION_MATCH_ROUNDS} rounds from "
+                  f"{' and '.join(matched)} prices; on {card}")
+        del twin
     auction.eager = False
-    print(f"auction ms per round, B = {costs.shape[0]}, n = m = "
-          f"{costs.shape[1]}, graph / eager: " + ", ".join(
-              f"block {w} {out['ms'][(w, False)]:.4f} / "
-              f"{out['ms'][(w, True)]:.4f}" for w in (1024, 128, 16))
-          + f" on {card}")
-    return out
+    return {"auction": auction, "kernel": out[(625, 16)]}
+
+
+def auction_rounds_match(auction, twin, ak, width: int, eps: float,
+                         prices) -> int:
+    """AUCTION_MATCH_ROUNDS rounds at ``width`` from one start (``prices``,
+    an empty assignment at ``eps``): the kernel on ``auction``, the plain
+    round on ``twin``, which shares its benefit.  Returns 0 when
+    row_to_col, col_owner, prices and live are equal after every round,
+    else the first round after which they differ."""
+    for a in (auction, twin):
+        a.prices.copy_(prices)
+        a.reset(eps)
+    fields = ("row_to_col", "col_owner", "prices", "live")
+    for r in range(1, AUCTION_MATCH_ROUNDS + 1):
+        auction.round(width)
+        ak.auction_round_reference(twin.benefit, twin.prices,
+                                   twin.row_to_col, twin.col_owner,
+                                   twin.eps, twin.live, width)
+        if not all(torch.equal(getattr(auction, f), getattr(twin, f))
+                   for f in fields):
+            return r
+    return 0
 
 
 def profile_auction(timing: dict, card: str) -> None:
@@ -1613,7 +1699,7 @@ def profile_auction(timing: dict, card: str) -> None:
     from adaptive_mcmc_tpu_torch.metrics import assignment as ta
     auction = timing["auction"]
     k = ta.ROUNDS_PER_GRAPH
-    for width in (1024, 128, 16):
+    for width in AUCTION_ROUND_BLOCKS:
         auction._block(k, width)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1727,13 +1813,13 @@ def check_contraction(amt, card: str) -> None:
 
 def run_diagnostics(amt, sets, counters, card: str) -> dict:
     """The diagnostics phase; returns what the profiled window at the end
-    needs.  No kernel of csrc/ is on its path."""
+    needs.  No kernel of csrc/ but the auction's is on its path."""
     t0 = time.perf_counter()
     reset_launches(*counters)
     timing = check_metrics(amt, sets, card)
     check_contraction(amt, card)
     require(all(mod.launches == 0 for mod in counters),
-            "the diagnostics launched a kernel of csrc/")
+            "the diagnostics launched a sampling kernel of csrc/")
     print(f"diagnostics phase: {time.perf_counter() - t0:.1f} s")
     return timing
 
@@ -2736,6 +2822,7 @@ def main() -> int:
     from adaptive_mcmc_tpu_torch.ops.cuda import _build
     from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2
     from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as auction_kernel
     from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1
     tn = importlib.import_module("adaptive_mcmc_tpu_torch.kernels.nuts")
 
@@ -2981,6 +3068,13 @@ def main() -> int:
             kernels.append(kernel_entry(f"{lib}[{tag}]", source, replaces,
                                         launches[(lib, name)],
                                         lanes[(lib, name)], res[name]))
+    # the auction at the grade's shape (B = 8, n = m = 625, block 16), its
+    # lanes per bidder those the kernel launches with there
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kernels.append(kernel_entry(
+        "auction_round", "auction.cu", AUCTION_REPLACES, diag["launches"],
+        32 * auction_kernel.warps_per_bidder(8, 16, 625, sms),
+        diag["kernel"]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, "
           f"builds included")
     print(json.dumps({"kernels": kernels}))

@@ -734,6 +734,137 @@ def test_auction_graph_equals_eager_and_the_cpu(cuda):
         costs, prices_init=pc))
 
 
+# (B, n, m): square 2, 64 and 625 (625: four warps per bidder at blocks 16
+# and 128, with scalar loads), a rectangle, long rows (two, four and eight
+# warps per bidder, float4 loads), 1 x 1
+AUCTION_SHAPES = [(1, 2, 2), (8, 2, 2), (1, 64, 64), (8, 64, 64),
+                  (1, 625, 625), (8, 625, 625), (8, 48, 80), (8, 32, 256),
+                  (8, 64, 512), (2, 64, 4096), (1, 1, 1), (8, 1, 1)]
+
+
+def _auction_pair(cuda, B, n, m, costs_kind, warm):
+    """Two auctions on the same CUDA tensors' copies, at ε = range / (2n)
+    (ε_final): costs uniform or integer-valued in 0..3 (dense ties, and
+    benefits of -0.0), prices zero or warm (uniform over the range)."""
+    from adaptive_mcmc_tpu_torch.metrics import assignment as ta
+
+    rng = np.random.default_rng(B * 100003 + n * 101 + m)
+    if costs_kind == "integer":
+        costs = rng.integers(0, 4, (B, n, m)).astype(np.float32)
+    else:
+        costs = rng.random((B, n, m)).astype(np.float32)
+    span = max(float(costs.max() - costs.min()), 1e-6)
+    prices = (rng.random((B, m)) * span).astype(np.float32) if warm \
+        else np.zeros((B, m), np.float32)
+    pair = [ta._Auction(-torch.tensor(costs, device=cuda),
+                        torch.tensor(prices, device=cuda), eager=True)
+            for _ in range(2)]
+    for a in pair:
+        a.reset(span / (2 * n))
+    return pair
+
+
+def _auction_buffers(a):
+    return (a.row_to_col, a.col_owner, a.prices, a.live)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("costs_kind", ["uniform", "integer"])
+@pytest.mark.parametrize("block", [16, 128, 1024])
+@pytest.mark.parametrize("shape", AUCTION_SHAPES,
+                         ids=["x".join(map(str, s)) for s in AUCTION_SHAPES])
+def test_auction_kernel_round_equals_the_plain_round(cuda, shape, block,
+                                                     costs_kind, warm):
+    """One kernel launch per round against the plain round on the same
+    buffers' twins: row_to_col, col_owner, prices and live equal bit for bit
+    after every round, up to 300 rounds or three rounds past the last
+    assignment (no-op rounds).  At 1 x 1 the one bid is +inf and wins
+    nothing, so nothing is ever assigned."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+
+    kern, plain = _auction_pair(cuda, *shape, costs_kind, warm)
+    before = ak.launches
+    after_done = 0
+    for r in range(300):
+        kern.round(block)
+        ak.auction_round_reference(plain.benefit, plain.prices,
+                                   plain.row_to_col, plain.col_owner,
+                                   plain.eps, plain.live, block)
+        torch.cuda.synchronize()
+        for name, x, y in zip(("row_to_col", "col_owner", "prices", "live"),
+                              _auction_buffers(kern),
+                              _auction_buffers(plain)):
+            assert torch.equal(x, y), f"{name} differs after round {r}"
+        after_done += not bool(kern.unassigned().any())
+        if after_done == 3:
+            break
+    assert ak.launches == before + r + 1
+    assert bool((kern.row_to_col[:, -1] == -1).all())
+    if shape[1:] == (1, 1):
+        assert bool((kern.row_to_col == -1).all()) and r == 299
+        assert bool((kern.live == 300).all())
+
+
+def test_auction_kernel_rounds_count_and_the_first_round_reads_nothing(
+        cuda):
+    """On the card every round of a solve runs through the kernel:
+    auction.kernel_rounds and the kernel's launches (graph replays counted
+    once per replay) equal auction.rounds, eagerly and from the graphs; the
+    first round passes _NoHostRead."""
+    from adaptive_mcmc_tpu_torch.infer.mcmc import _NoHostRead
+    from adaptive_mcmc_tpu_torch.metrics import assignment as ta
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+
+    ref, _ = _clouds_np(300, 4, 0)
+    costs = torch.stack([amt.metrics.minkowski_cost_matrix(
+        torch.tensor(_clouds_np(300, 4, s)[1]), torch.tensor(ref))
+        for s in (1, 2)]).to(cuda)
+    a = ta._Auction(-costs, torch.zeros((2, 300), device=cuda), eager=False)
+    a.reset(0.01)
+    with _NoHostRead():
+        a.round(16)
+    for eager in (False, True):
+        totals = profiling.totals()
+        rounds = totals.get("auction.rounds", 0)
+        kernel_rounds = totals.get("auction.kernel_rounds", 0)
+        launches = ak.launches
+        ta.auction_assignment_batch(costs, eager=eager)
+        torch.cuda.synchronize()
+        totals = profiling.totals()
+        ran = totals["auction.rounds"] - rounds
+        assert ran > 0
+        assert totals["auction.kernel_rounds"] - kernel_rounds == ran
+        assert ak.launches - launches == ran
+
+
+def test_auction_kernel_round_bids_nothing_from_a_row_with_no_value(cuda):
+    """A benefit row of NaNs or of -infs has no best column: the kernel's
+    bidder there bids on nothing and writes no index past the row, the
+    other rows bid as usual, and the scratch is zero after the round."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+
+    B, n = 2, 64
+    g = torch.Generator().manual_seed(3)
+    benefit = -torch.rand((B, n, n), generator=g)
+    benefit[0, 2] = float("nan")
+    benefit[1, 0] = float("-inf")
+    benefit = benefit.to(cuda)
+    prices = torch.zeros((B, n), device=cuda)
+    row_to_col = torch.full((B, n + 1), -1, dtype=torch.int64, device=cuda)
+    col_owner = torch.full((B, n), -1, dtype=torch.int64, device=cuda)
+    live = torch.zeros((B,), dtype=torch.int64, device=cuda)
+    scratch = ak.new_scratch(B, n, n, cuda)
+    ak.launch_round(benefit, prices, row_to_col, col_owner,
+                    torch.tensor(0.01, device=cuda), live, 16, scratch)
+    torch.cuda.synchronize()
+    assert int(row_to_col[0, 2]) == -1 and int(row_to_col[1, 0]) == -1
+    assert int((row_to_col[:, :16] >= 0).sum()) > 0
+    assert bool(torch.isfinite(prices).all())
+    assert bool((live == 1).all())
+    keys, _, done = scratch
+    assert bool((keys == 0).all()) and bool((done == 0).all())
+
+
 def test_metrics_on_the_card_match_the_cpu(cuda):
     """Every metric on the card against the same function on the CPU, same
     arrays, rtol 1e-4."""

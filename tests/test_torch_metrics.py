@@ -3,7 +3,9 @@ numpy inputs (CPU): moments, 1-D and sliced Wasserstein (on JAX's own
 directions), MMD with the median heuristic, log-domain Sinkhorn (equal
 iteration counts), the cost matrix, the exact host solvers (the port's
 native Hungarian against SciPy) and the ε-auction (JAX's assignments on the
-instances of tests/test_metrics.py).  Tolerances: rtol 1e-5 for every
+instances of tests/test_metrics.py; its round kernel's wrapper: the
+refusals before the library loads, the plain round on the CPU, the warps
+per bidder).  Tolerances: rtol 1e-5 for every
 metric, exact for the median, the iteration counts and the assignments."""
 
 import jax
@@ -328,6 +330,134 @@ def test_auction_batch_tie_dense_same_assignment():
     ct = ta.auction_assignment_batch(_t(costs), block=64)
     np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
     _check_exact_band(costs, ct.numpy())
+
+
+def _round_args(B=2, n=5, m=7):
+    """Well-formed CPU arguments of one auction round and its scratch."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+
+    benefit = -torch.rand((B, n, m), generator=torch.Generator()
+                          .manual_seed(0))
+    return dict(benefit=benefit, prices=torch.zeros((B, m)),
+                row_to_col=torch.full((B, n + 1), -1, dtype=torch.int64),
+                col_owner=torch.full((B, m), -1, dtype=torch.int64),
+                eps=torch.tensor(0.01), live=torch.zeros(B, dtype=torch.int64),
+                block=4, scratch=ak.new_scratch(B, n, m, "cpu"))
+
+
+def _bad_round_args(case):
+    args = _round_args()
+    if case == "float64":
+        args["benefit"] = args["benefit"].double()
+    elif case == "non-contiguous":
+        args["benefit"] = args["benefit"].transpose(1, 2).contiguous() \
+            .transpose(1, 2)
+    elif case == "n > m":
+        args = _round_args(n=7, m=5)
+    elif case == "scratch":
+        keys, slots, done = args["scratch"]
+        args["scratch"] = (keys, slots[:, :-1], done)
+    return args
+
+
+@pytest.mark.parametrize("case, error, match", [
+    ("cpu", ValueError, "CUDA tensors"),
+    ("float64", TypeError, "benefit must be torch.float32"),
+    ("non-contiguous", ValueError, "benefit must be contiguous"),
+    ("n > m", ValueError, "n <= m"),
+    ("scratch", TypeError, "slots must be torch.int32"),
+])
+def test_auction_kernel_wrapper_refuses_before_loading(monkeypatch, case,
+                                                        error, match):
+    """The kernel's wrapper checks its arguments before it builds or loads
+    the library: a CPU tensor, float64, a non-contiguous benefit, n > m and
+    scratch of the wrong shape are each refused."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import _build
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+
+    def no_library(*args, **kwargs):
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(_build, "load", no_library)
+    monkeypatch.setattr(_build, "function", no_library)
+    before = ak.launches
+    with pytest.raises(error, match=match):
+        ak.launch_round(**_bad_round_args(case))
+    assert ak.launches == before
+
+
+def test_auction_round_on_the_cpu_runs_the_plain_round():
+    """On CPU tensors the dispatch runs the plain round (same buffers as
+    auction_round_reference on their twins) and launches nothing; a solve
+    counts its rounds in auction.rounds and none in auction.kernel_rounds."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+    from adaptive_mcmc_tpu_torch.utils import profiling
+
+    before = ak.launches
+    a, b = _round_args(), _round_args()
+    for _ in range(3):
+        ak.auction_round(**a)
+        ak.auction_round_reference(**{k: v for k, v in b.items()
+                                      if k != "scratch"})
+    for name in ("row_to_col", "col_owner", "prices", "live"):
+        assert torch.equal(a[name], b[name])
+    assert int((a["row_to_col"][:, :-1] >= 0).sum()) > 0
+    rounds = profiling.totals().get("auction.rounds", 0)
+    costs = _batch_costs(5, 2, 40, 3)
+    ta.auction_assignment_batch(_t(costs))
+    assert profiling.totals()["auction.rounds"] > rounds
+    assert profiling.totals().get("auction.kernel_rounds", 0) == 0
+    assert ak.launches == before
+
+
+def test_auction_kernel_rounds_count_the_kernels_launches(monkeypatch):
+    """auction.kernel_rounds is read off the kernel's launch count around
+    each block, not off the device: a round that counts a launch (here a
+    stand-in for the kernel on CPU tensors) is counted, and a solve's
+    kernel_rounds then equal its rounds."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+    from adaptive_mcmc_tpu_torch.utils import profiling
+
+    def counted_round(benefit, prices, row_to_col, col_owner, eps, live,
+                      block, scratch):
+        ak.auction_round_reference(benefit, prices, row_to_col, col_owner,
+                                   eps, live, block)
+        ak.launches += 1
+
+    monkeypatch.setattr(ak, "auction_round", counted_round)
+    before = dict(profiling.totals())
+    ta.auction_assignment_batch(_t(_batch_costs(6, 2, 40, 3)), block=8)
+    ran = {c: profiling.totals().get(c, 0) - before.get(c, 0)
+           for c in ("auction.rounds", "auction.kernel_rounds")}
+    assert ran["auction.rounds"] > 0
+    assert ran["auction.kernel_rounds"] == ran["auction.rounds"]
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf"),
+                                   float("-inf")])
+def test_auction_refuses_non_finite_costs(value):
+    """A cost matrix that holds a NaN or an infinity (a draw of a diverged
+    chain) is refused on the host before any round, alone or in a batch."""
+    costs = _t(_batch_costs(7, 2, 12, 3))
+    costs[1, 4, 5] = value
+    with pytest.raises(ValueError, match="finite costs"):
+        ta.auction_assignment_batch(costs)
+    with pytest.raises(ValueError, match="finite costs"):
+        ta.auction_assignment(costs[1])
+
+
+@pytest.mark.parametrize("B, bidders, m, want", [
+    (8, 625, 625, 1), (8, 128, 625, 4), (8, 16, 625, 4), (8, 2, 2, 1),
+    (8, 1024, 10000, 1), (8, 128, 10000, 4), (8, 16, 10000, 8),
+    (1, 1, 512, 4), (1, 1, 1_000_000, 8), (8, 16, 1, 1)])
+def test_auction_warps_per_bidder(B, bidders, m, want):
+    """Warps per bidding row on 132 SMs: one while the bidders fill half
+    the card or the rows are short, up to a block's eight for the endgame's
+    few long rows; always a divisor of the block's eight warps."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import auction as ak
+
+    g = ak.warps_per_bidder(B, bidders, m, 132)
+    assert g == want and ak.WARPS_PER_BLOCK % g == 0
 
 
 def test_auction_raises_when_rounds_run_out():
