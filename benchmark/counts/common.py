@@ -1,12 +1,25 @@
 """Operation counts shared by the kernel counts: one float operation per
 add, multiply, division, square root or transcendental, as the
-``csrc/common.cuh`` potentials do them."""
+``csrc/common.cuh`` potentials do them.
 
-# one potential evaluation, by the port's target name
-POTENTIAL_OPS = {
-    "eight_schools": 142,         # 14 + 16 per school
-    "diamonds": 830,              # 576 of them in u = Lᵀ(b − b̂)
-}
+One potential evaluation of each target is counted in a file of its own,
+``counts/targets/<target>.py`` for the port's target name, as
+``POTENTIAL_OPS``: a new target adds that file and edits none."""
+
+import functools
+from pathlib import Path
+
+from benchmark.registry import load_module
+
+TARGETS = Path(__file__).resolve().parent / "targets"
+
+
+@functools.lru_cache(maxsize=None)
+def potential_ops(target: str) -> int:
+    """Operations of one evaluation of ``target``'s potential (a missing
+    file raises FileNotFoundError with its path)."""
+    return load_module(TARGETS / f"{target}.py",
+                       f"benchmark_counts_target_{target}").POTENTIAL_OPS
 
 
 def tri(d: int) -> int:

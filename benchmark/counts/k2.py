@@ -11,8 +11,8 @@ from benchmark.counts import common
 
 def step_ops(target: str, d: int) -> int:
     """Operations of one chain's step."""
-    return (3 * common.tri(d) + 2 * d) + common.POTENTIAL_OPS[target] + 15 \
-        + 3 * d + common.rank1_ops(d)
+    return (3 * common.tri(d) + 2 * d) + common.potential_ops(target) \
+        + 15 + 3 * d + common.rank1_ops(d)
 
 
 def counts(target: str, C: int, d: int, S: int, F: int,

@@ -27,7 +27,7 @@ def totals(target: str, C: int, d: int, launches: int, chain_steps: int,
     nbytes = 4 * (launches * ((state_in + state_out) * C + n_data)
                   + 3 * iters + chain_steps * (d + 1)
                   + chain_frames * (d + 2))
-    iteration = 3 * t + 5 * d + 9 + common.POTENTIAL_OPS[target]
+    iteration = 3 * t + 5 * d + 9 + common.potential_ops(target)
     land = 6 * d + common.rank1_ops(d) + 3 * t + 3
     begin = 3 * d * (d - 1) // 2 + 14 * d + 18
     ops = (iters - launches * C) * iteration \

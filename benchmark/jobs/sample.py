@@ -4,8 +4,10 @@
   ``w_eval_config(target, kernel, fused=...)`` at the traffic's seeds and
   budget, writing its npz and manifest into a fresh directory under
   ``TMPDIR``, deleted after the job;
-* ``driver: "mcmc"``: ``MCMC(arwmh(target, ARWMHConfig(num_warmup,
-  fused)), ...).run(generator)``, then ``get_samples()`` copied to the host.
+* ``driver: "mcmc"``: ``MCMC(<kernel>(target, <Config>(num_warmup,
+  fused)), ...).run(generator)`` of the sampler the traffic's ``kernel``
+  names (``KERNELS``; ``fused`` only where the config has the field), then
+  ``get_samples()`` copied to the host.
 
 A job counts (num_warmup + num_samples) × chains chain-iterations and
 num_samples / thinning × chains draws; a ``w_eval`` traffic's
@@ -15,6 +17,7 @@ draws, potentials and final state for ``check``."""
 
 from __future__ import annotations
 
+import dataclasses
 import shutil
 import tempfile
 
@@ -22,6 +25,13 @@ import numpy as np
 
 from benchmark.harness import job_seed, reference_seed
 from benchmark.reference import compare
+
+# the samplers a ``mcmc`` traffic's ``kernel`` may name: the port's
+# builder and its config class, by their names in adaptive_mcmc_tpu_torch
+KERNELS = {"arwmh": ("arwmh", "ARWMHConfig"),
+           "asss": ("asss", "ASSSConfig"),
+           "nuts": ("nuts", "NUTSConfig"),
+           "sa": ("sa", "SAConfig")}
 
 # end-to-end metrics from the timed window's work and length
 E2E = {"chain_iters_per_s": lambda work, window_s:
@@ -57,6 +67,22 @@ class Job:
             return out
 
         parallel.run_mcmc_sharded = recorded
+        if self.t["driver"] == "mcmc":
+            self.build_kernel = self._kernel_builder(self.t["kernel"])
+
+    def _kernel_builder(self, name: str):
+        """``target -> kernel`` for the sampler ``name`` at the traffic's
+        warmup and ``fused``."""
+        if name not in KERNELS:
+            raise ValueError(f"unknown kernel {name!r} in the traffic: one "
+                             f"of {sorted(KERNELS)}")
+        build, config = (getattr(self.amt, a) for a in KERNELS[name])
+        kw = {"num_warmup": int(self.t["num_warmup"])}
+        if any(f.name == "fused" for f in dataclasses.fields(config)):
+            kw["fused"] = bool(self.t["fused"])
+        elif self.t.get("fused"):
+            raise ValueError(f"{name!r} has no fused kernel")
+        return lambda target: build(target, config(**kw))
 
     # -- one job ------------------------------------------------------
     def run(self, k: int, keep: bool = False) -> None:
@@ -105,9 +131,7 @@ class Job:
         from adaptive_mcmc_tpu_torch.experiments.runner import TARGETS
 
         amt, t = self.amt, self.t
-        target = TARGETS[self.ctx.config["target"]]()
-        kernel = amt.arwmh(target, amt.ARWMHConfig(
-            num_warmup=int(t["num_warmup"]), fused=bool(t["fused"])))
+        kernel = self.build_kernel(TARGETS[self.ctx.config["target"]]())
         mcmc = amt.MCMC(kernel, num_warmup=int(t["num_warmup"]),
                         num_samples=int(t["num_samples"]),
                         thinning=int(t["thinning"]), n_chains=self.chains)

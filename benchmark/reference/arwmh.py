@@ -38,7 +38,7 @@ def run(config: dict, chains: int, num_warmup: int, num_samples: int,
     dt = getattr(torch, dtype)
     device = torch.device(device)
     d = int(config["dim"])
-    fn = potentials.POTENTIALS[config["target"]]
+    fn = potentials.target(config).potential
     g = torch.Generator(device).manual_seed(seed % 2**63)
 
     def potential(x):

@@ -12,8 +12,10 @@ Sampling (``sample_numbers``), per kept job:
   never moved: a transition that leaves its state unchanged;
 * ``clock_gap``: the final state's clock less the steps asked for
   (warmup + samples), exactly 0;
-* ``accept_gap`` (ARWMH): the median chain's mean acceptance over the
-  sampling steps less the adaptation's target 0.234;
+* ``accept_gap``: the median chain's mean acceptance over the sampling
+  steps less the traffic's ``accept_target``, the acceptance its sampler
+  adapts to (ARWMH 0.234, NUTS 0.8); a traffic that states none, or a
+  state that carries no mean acceptance, reports none;
 * ``law_gap``: the widest gap between the pooled draws' per-coordinate
   mean, sd and 5, 25, 50, 75 and 95% quantiles and those of a reference
   sample, in the reference's sd of that coordinate (``arwmh.law_gap``):
@@ -104,8 +106,9 @@ def sample_numbers(outputs: list, config: dict, traffic: dict,
         got = {"pe_gap": np.max(np.abs(pe - ref) / np.maximum(1.0, mag)),
                "frozen_share": still.mean(),
                "clock_gap": abs(o["i"] - steps)}
-        if "map" in o:
-            got["accept_gap"] = abs(float(np.median(o["map"])) - 0.234)
+        if "map" in o and "accept_target" in traffic:
+            got["accept_gap"] = abs(float(np.median(o["map"]))
+                                    - float(traffic["accept_target"]))
         if law is not None and dtype == "float64":
             burn = int(x.shape[1] * float(traffic.get("law_burn", 0)))
             got["law_gap"] = arwmh.law_gap(x[:, burn:], law)

@@ -5,7 +5,19 @@ names), a traffic mix ``benchmark/traffic/<traffic>.json``, a cell's limits
 ``benchmark/limits/<cell>.json``, a job kind ``benchmark/jobs/<kind>.py``, a
 per-layer metric ``benchmark/layer_metrics/<metric>.py`` and a kernel count
 ``benchmark/counts/<name>.py``.  Adding any of them adds files and entries
-and edits none."""
+and edits none.
+
+A configuration whose ``target`` the benchmark has not seen adds:
+
+* its file under ``configs/`` and its raw data under ``data/``;
+* its float64 reference, ``reference/targets/<target>.py``: ``raw(config)``
+  and ``potential(x, config)`` (``reference/potentials.py``);
+* its count of one potential evaluation,
+  ``counts/targets/<target>.py``'s ``POTENTIAL_OPS``;
+* a traffic mix for each cell (its ``kernel`` names the sampler, its
+  ``accept_target`` the acceptance that sampler adapts to), a limits file
+  for each cell, and the ``configs``, ``workloads`` and metrics'
+  ``workloads`` entries in ``BENCHMARK.json``."""
 
 from __future__ import annotations
 

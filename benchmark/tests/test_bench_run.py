@@ -103,3 +103,95 @@ def test_grade_pool_orders_the_same_work(tiny_root):
         jobs.append([job.pool_seed(k) for k in range(traffic["pool"])])
     assert sorted(jobs[0]) == sorted(jobs[1]) and jobs[0] != jobs[1]
     assert len(set(jobs[0])) == traffic["pool"]
+
+
+def _add_cell(root, config: str, traffic: str, t: dict, limits: dict) -> str:
+    """A cell of ``config`` under a new traffic mix ``t``, with its limits
+    and BENCHMARK.json entries."""
+    bench = root / "benchmark"
+    (bench / "traffic" / f"{traffic}.json").write_text(json.dumps(t))
+    cell = f"{config}.{traffic}"
+    (bench / "limits" / f"{cell}.json").write_text(json.dumps(limits))
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["workloads"].append({"name": cell, "config": config,
+                              "traffic": traffic, "chips": 1,
+                              "why": "a test's cell"})
+    spec["end_to_end"][0]["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return cell
+
+
+def _k1_traffic(root) -> dict:
+    return json.loads((root / "benchmark" / "traffic" / "arwmh_k1.c4096.json"
+                       ).read_text())
+
+
+def test_the_traffic_names_the_sampler(tiny_root, monkeypatch):
+    """An ``mcmc`` traffic naming NUTS runs NUTS, its acceptance held to
+    the traffic's target 0.8 (ARWMH's 0.234 would read some 0.5 off)."""
+    import adaptive_mcmc_tpu_torch as amt
+
+    t = _k1_traffic(tiny_root)
+    del t["law"]
+    t.update(kernel="nuts", accept_target=0.8, chains=8, num_warmup=50,
+             num_samples=50, thinning=5)
+    cell = _add_cell(tiny_root, "eight_schools_noncentered", "nuts.c8", t,
+                     {"pe_gap": 1e-5, "frozen_share": 0.05, "clock_gap": 0,
+                      "accept_gap": 0.3})
+    built = []
+    nuts = amt.nuts
+
+    def recorded(*a, **k):
+        built.append(nuts(*a, **k))
+        return built[-1]
+
+    monkeypatch.setattr(amt, "nuts", recorded)
+    for name in ("arwmh", "asss", "sa"):
+        monkeypatch.setattr(amt, name, None)
+    out = run_cell(tiny_root, cell)
+    assert built and all(k.name == "nuts" for k in built)
+    assert isinstance(built[0].config, amt.NUTSConfig)
+    assert built[0].config.num_warmup == 50
+    assert out["correct"], out["checks"]
+
+
+def test_unknown_kernel_raises(tiny_root):
+    from benchmark.harness import Context
+    from benchmark.registry import Registry
+
+    t = dict(_k1_traffic(tiny_root), kernel="nope")
+    reg = Registry(tiny_root)
+    ctx = Context(cell="x", config=reg.config("eight_schools_noncentered"),
+                  traffic=t, seed=1, device="cpu", registry=reg)
+    with pytest.raises(ValueError, match="unknown kernel 'nope'"):
+        reg.job_module("sample").Job(ctx).setup()
+
+
+def test_no_accept_target_no_accept_gap(tiny_root):
+    """Without the traffic's ``accept_target`` no ``accept_gap`` is
+    computed, and a limit that names one reads it as missing (inf): the
+    run is not correct."""
+    import numpy as np
+
+    from benchmark.reference import compare, potentials
+    from benchmark.registry import Registry
+
+    cfg = Registry(tiny_root).config("eight_schools_noncentered")
+    x = np.random.default_rng(3).standard_normal((4, 2, 10))
+    pe = potentials.potential(cfg, x.reshape(-1, 10)).reshape(4, 2)
+    o = {"x": x, "pe": pe, "x_last": x[:, -1], "pe_last": pe[:, -1],
+         "i": 2, "map": np.array([0.1, 0.2, 0.3, 0.5])}
+    t = {"num_warmup": 1, "num_samples": 1}
+    assert "accept_gap" not in compare.sample_numbers([o], cfg, t)
+    got = compare.sample_numbers([o], cfg, dict(t, accept_target=0.234))
+    assert got["accept_gap"] == pytest.approx(0.25 - 0.234)
+
+    t = _k1_traffic(tiny_root)
+    del t["accept_target"]
+    cell = _add_cell(tiny_root, "eight_schools_noncentered", "arwmh_k1.bare",
+                     t, json.loads((tiny_root / "benchmark" / "limits" /
+                                    "eight_schools_noncentered.arwmh_k1"
+                                    ".c4096.json").read_text()))
+    out = run_cell(tiny_root, cell)
+    assert out["checks"]["accept_gap"]["value"] == float("inf")
+    assert not out["correct"]
