@@ -16,7 +16,9 @@ inner loop reads the host once per block of trips (:class:`LockstepGraph`;
 kernels that declare ``step_parts``, ASSS), and elsewhere the loop over
 steps is a Python loop.
 
-Spans and counters (``utils.profiling``): ``MCMC.run``; ``graph.capture``
+Spans and counters (``utils.profiling``): ``MCMC.run``; ``run_mcmc.warmup``
+(attribute ``steps``) and ``run_mcmc.collect`` (``steps``, ``thinning``)
+around :func:`run_mcmc`'s two phases; ``graph.capture``
 around every capture (its ``label``: the kernel or machine);
 ``graph.replays``, per replay; ``host.reads``, the reads of a machine's
 progress between blocks; ``rollouts.<device type>``, the frozen rollouts
@@ -457,11 +459,16 @@ def run_mcmc(
             return state
 
     if num_warmup:
-        state = advance(state, 0, num_warmup)
+        with profiling.span("run_mcmc.warmup", steps=num_warmup):
+            state = advance(state, 0, num_warmup)
 
+    collect = profiling.span("run_mcmc.collect", steps=num_samples,
+                             thinning=thinning)
     if collect_n is not None and num_collect:
-        state, bufs = collect_n(state, num_collect, thinning, generator,
-                                *draws(num_warmup, num_samples), eager=eager)
+        with collect:
+            state, bufs = collect_n(state, num_collect, thinning, generator,
+                                    *draws(num_warmup, num_samples),
+                                    eager=eager)
         samples = bufs[sample_field].transpose(0, 1)
         extras = {f: bufs[f].transpose(0, 1) for f in extra_fields}
         return samples, extras, state
@@ -472,10 +479,11 @@ def run_mcmc(
                        device=getattr(state, f).device)
         for f in fields
     }
-    for k in range(num_collect):
-        state = advance(state, num_warmup + k * thinning, thinning)
-        for f in fields:
-            bufs[f][k] = getattr(state, f)
+    with collect:
+        for k in range(num_collect):
+            state = advance(state, num_warmup + k * thinning, thinning)
+            for f in fields:
+                bufs[f][k] = getattr(state, f)
     samples = bufs.pop(sample_field)
     return samples, bufs, state
 

@@ -237,3 +237,31 @@ def test_evaluate_run_records_the_auction(tmp_path):
     assert abs(timings["wasserstein"] - spans[wass].seconds) < 1e-3
     assert set(timings) == {"rmse_means", "mmd", "sinkhorn", "wasserstein",
                             "ess"}
+
+
+@pytest.mark.parametrize("kernel", ["arwmh", "asss"])
+def test_run_mcmc_records_its_phases(kernel):
+    """run_mcmc's warmup and collection are spans inside MCMC.run, with
+    their steps (and the thinning), through the lockstep loop (ARWMH) and
+    through ``collect_n`` (ASSS, K3's plain version); the counts taken
+    inside them roll up to MCMC.run."""
+    target = amt.eight_schools_noncentered()
+    k = amt.arwmh(target, amt.ARWMHConfig(num_warmup=30)) \
+        if kernel == "arwmh" else \
+        amt.asss(target, amt.ASSSConfig(num_warmup=30, fused=True))
+    mcmc = amt.MCMC(k, num_warmup=30, num_samples=40, thinning=4,
+                    n_chains=6)
+    spans, _ = _traced(lambda: mcmc.run(torch.Generator().manual_seed(1)))
+    names = _by_name(spans)
+    (warm,), (collect,) = names["run_mcmc.warmup"], names["run_mcmc.collect"]
+    assert spans[warm].parent == spans[collect].parent == 0
+    assert spans[warm].attrs == {"steps": 30}
+    assert spans[collect].attrs == {"steps": 40, "thinning": 4}
+    assert spans[warm].end_ns <= spans[collect].start_ns
+    assert spans[0].seconds >= spans[warm].seconds + spans[collect].seconds
+    if kernel == "asss":
+        for i in (warm, collect):
+            assert spans[i].counts["asss.machine_iters"] > 0
+        assert spans[0].counts["asss.machine_iters"] == (
+            spans[warm].counts["asss.machine_iters"]
+            + spans[collect].counts["asss.machine_iters"])
