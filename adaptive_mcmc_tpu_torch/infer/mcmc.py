@@ -16,9 +16,17 @@ inner loop reads the host once per block of trips (:class:`LockstepGraph`;
 kernels that declare ``step_parts``, ASSS), and elsewhere the loop over
 steps is a Python loop.
 
+:class:`MCMC` lands the draws it hands back in pinned host memory (one
+copy, straight from the device frames, behind the collection); the library
+callers of :func:`run_mcmc` (the sharded driver, the checkpointed driver,
+the reference draws of ``experiments.evaluate``) keep the frames on the
+device that made them.
+
 Spans and counters (``utils.profiling``): ``MCMC.run``; ``run_mcmc.warmup``
 (attribute ``steps``) and ``run_mcmc.collect`` (``steps``, ``thinning``)
-around :func:`run_mcmc`'s two phases; ``graph.capture``
+around :func:`run_mcmc`'s two phases, and in the latter
+``run_mcmc.to_host`` around the copy of the frames to pinned host memory,
+with its counter ``run_mcmc.host_bytes``; ``graph.capture``
 around every capture (its ``label``: the kernel or machine);
 ``graph.replays``, per replay; ``host.reads``, the reads of a machine's
 progress between blocks; ``rollouts.<device type>``, the frozen rollouts
@@ -377,6 +385,39 @@ def advancer(kernel, generator, state, block: int, eager: bool = False):
     return loop
 
 
+def _to_host(bufs: dict, fields: Sequence[str]) -> dict:
+    """The frames ``bufs[f]`` of ``fields`` landed in pinned host memory,
+    once the collection queued before this call has written them; CPU
+    frames come back as they are.
+
+    The host tensors take the frames' sizes and strides (``empty_like``:
+    the frames are dense), so each field is one ``cudaMemcpyAsync`` of its
+    whole storage on the run's stream, with no transpose on the card.
+    They are allocated (from PyTorch's caching host allocator) while the
+    collection still runs; the copy is issued once an event recorded
+    behind the collection has completed, so that the ``run_mcmc.to_host``
+    span times the copy alone."""
+    frames = {f: bufs[f] for f in fields}
+    first = frames[fields[0]]
+    if not first.is_cuda:
+        return bufs
+    stream = torch.cuda.current_stream(first.device)
+    collected = torch.cuda.Event()
+    collected.record(stream)
+    host = {f: torch.empty_like(t, device="cpu", pin_memory=True)
+            for f, t in frames.items()}
+    n_bytes = sum(t.numel() * t.element_size() for t in host.values())
+    collected.synchronize()
+    with profiling.span("run_mcmc.to_host"):
+        for f, t in frames.items():
+            host[f].copy_(t, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record(stream)
+        landed.synchronize()
+        profiling.count("run_mcmc.host_bytes", n_bytes)
+    return host
+
+
 def run_mcmc(
     kernel,
     generator: Optional[torch.Generator],
@@ -392,6 +433,7 @@ def run_mcmc(
     unif: Optional[Tensor] = None,
     device=None,
     eager: bool = False,
+    to_host: bool = False,
 ):
     """Run ``num_warmup`` burn-in + ``num_samples`` sampling iterations.
 
@@ -412,6 +454,14 @@ def run_mcmc(
     that cannot be captured after all raises.  ``eager=True`` asks for the
     Python loop instead; a CPU run and a run with injected draws always
     take it.
+
+    The frames stay on the run's device, where the library's callers
+    (``run_mcmc_sharded``, ``run_mcmc_checkpointed``, the reference draws
+    of ``experiments.evaluate``) use them.  ``to_host=True``, which
+    :meth:`MCMC.run` sets, lands the requested fields' frames in pinned
+    host memory instead, inside the ``run_mcmc.collect`` span
+    (:func:`_to_host`); a CPU run's frames are already there.
+    ``last_state`` stays on the device either way.
     """
     if num_samples % thinning:
         raise ValueError("num_samples must divide by thinning")
@@ -469,6 +519,8 @@ def run_mcmc(
             state, bufs = collect_n(state, num_collect, thinning, generator,
                                     *draws(num_warmup, num_samples),
                                     eager=eager)
+            if to_host:
+                bufs = _to_host(bufs, fields)
         samples = bufs[sample_field].transpose(0, 1)
         extras = {f: bufs[f].transpose(0, 1) for f in extra_fields}
         return samples, extras, state
@@ -484,6 +536,8 @@ def run_mcmc(
             state = advance(state, num_warmup + k * thinning, thinning)
             for f in fields:
                 bufs[f][k] = getattr(state, f)
+        if to_host:
+            bufs = _to_host(bufs, fields)
     samples = bufs.pop(sample_field)
     return samples, bufs, state
 
@@ -491,7 +545,11 @@ def run_mcmc(
 class MCMC:
     """Convenience driver (``MCMC(kernel, num_warmup, num_samples,
     thinning, n_chains)`` -> ``.run(generator)`` -> ``.get_samples()`` /
-    ``.print_summary()``), built on :func:`run_mcmc`."""
+    ``.print_summary()``), built on :func:`run_mcmc`.
+
+    A run on the card hands back its draws and extra fields in pinned host
+    memory, copied once from the device frames behind the collection
+    (``run_mcmc(..., to_host=True)``); ``last_state`` stays on the card."""
 
     def __init__(self, kernel, *, num_warmup: int, num_samples: int,
                  thinning: int = 1, n_chains: int = 1):
@@ -539,6 +597,7 @@ class MCMC:
             extra_fields=extra_fields,
             device=device,
             eager=eager,
+            to_host=True,
         )
         return self
 
@@ -546,7 +605,8 @@ class MCMC:
     def get_samples(self, *, group_by_chain: bool = False,
                     flat_unconstrained: bool = False):
         """Constrained per-site samples; by default (draws, chains) are
-        flattened into one leading axis."""
+        flattened into one leading axis.  They are host tensors (pinned
+        after a run on the card): views of the draws :meth:`run` landed."""
         if self._samples is None:
             raise RuntimeError("call .run() first")
         x = self._samples  # (T, C, d)

@@ -770,7 +770,7 @@ def run_main_path(amt, fused: bool, card: str):
     mcmc.print_summary()
     print(mcmc.diagnostics_str())
     draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
-    require(draws.is_cuda, "draws not on the card")
+    require(draws.is_pinned(), "draws not in pinned host memory")
     require(tuple(draws.shape) == (NUM_SAMPLES // THINNING, N_CHAINS, t.dim),
             f"draws shape {tuple(draws.shape)}")
     require(bool(torch.isfinite(draws).all()), "non-finite draws")
@@ -931,7 +931,7 @@ def run_asss_fused(amt, card: str):
     mcmc.print_summary()
     print(mcmc.diagnostics_str())
     draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
-    require(draws.is_cuda, "ASSS draws not on the card")
+    require(draws.is_pinned(), "ASSS draws not in pinned host memory")
     require(tuple(draws.shape) == (NUM_SAMPLES // THINNING, N_CHAINS, t.dim),
             f"ASSS draws shape {tuple(draws.shape)}")
     require(bool(torch.isfinite(draws).all()), "non-finite ASSS draws")
@@ -1011,7 +1011,8 @@ def run_fused(amt, name: str, sampler: str, C: int, num_warmup: int,
     print(mcmc.diagnostics_str())
     label = f"{sampler} fused ({'K3' if sampler == 'ASSS' else 'K2'}) {name}"
     draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
-    require(draws.is_cuda, f"{label}: draws not on the card")
+    require(draws.is_pinned(),
+            f"{label}: draws not in pinned host memory")
     require(tuple(draws.shape) == (num_samples // THINNING, C, t.dim),
             f"{label}: draws shape {tuple(draws.shape)}")
     require(bool(torch.isfinite(draws).all()), f"{label}: non-finite draws")
@@ -1114,7 +1115,7 @@ def run_sa(amt, k1, card: str):
     mcmc.print_summary()
     print(mcmc.diagnostics_str())
     draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
-    require(draws.is_cuda, "SA draws not on the card")
+    require(draws.is_pinned(), "SA draws not in pinned host memory")
     require(tuple(draws.shape) == (SA_SAMPLES // THINNING, SA_CHAINS, t.dim),
             f"SA draws shape {tuple(draws.shape)}")
     require(bool(torch.isfinite(draws).all()), "non-finite SA draws")
@@ -1258,7 +1259,8 @@ def run_nuts(amt, tn, name: str, warmup: int, samples: int, card: str):
     print(mcmc.diagnostics_str())
     draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
     label = f"NUTS {name}"
-    require(draws.is_cuda, f"{label}: draws not on the card")
+    require(draws.is_pinned(),
+            f"{label}: draws not in pinned host memory")
     require(tuple(draws.shape) == (samples, NUTS_CHAINS, t.dim),
             f"{label}: draws shape {tuple(draws.shape)}")
     require(bool(torch.isfinite(draws).all()), f"{label}: non-finite draws")
@@ -1469,7 +1471,7 @@ def check_metrics(amt, sets, card: str) -> dict:
     m = amt.metrics
     dev = torch.device("cuda")
     gold = torch.tensor(gold_draws(amt), dtype=torch.float32, device=dev)
-    xs = torch.stack(sets)
+    xs = torch.stack(sets).to(dev)      # MCMC.run's draws are host tensors
     S, n, d = xs.shape
     times = {}
     rmse, times["moment RMSE"] = timed(

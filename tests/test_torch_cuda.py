@@ -197,6 +197,14 @@ def test_k2_matches_plain_version_injected(cuda):
         torch.testing.assert_close(gf[k], wf[k], rtol=2e-5, atol=2e-6)
 
 
+def _landed(mcmc) -> bool:
+    """Whether MCMC.run's draws landed in pinned host memory.  Flattening
+    (draws, chains) copies them where their frames were chains-last (K2,
+    K3), so the draws are read by chain."""
+    return mcmc.get_samples(group_by_chain=True,
+                            flat_unconstrained=True).is_pinned()
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_main_path_goes_through_the_kernels(cuda, fused):
     t = amt.eight_schools_noncentered()
@@ -206,7 +214,8 @@ def test_main_path_goes_through_the_kernels(cuda, fused):
                     n_chains=256)
     mcmc.run(torch.Generator(cuda).manual_seed(1))
     samples = mcmc.get_samples(flat_unconstrained=True)
-    assert samples.is_cuda and samples.shape == (100 * 256, t.dim)
+    assert _landed(mcmc)
+    assert not samples.is_cuda and samples.shape == (100 * 256, t.dim)
     assert bool(torch.isfinite(samples).all())
     assert (k2.launches if fused else k1.launches) > 0
 
@@ -259,7 +268,8 @@ def test_asss_main_path_goes_through_k3(cuda):
                     n_chains=256)
     mcmc.run(torch.Generator(cuda).manual_seed(1))
     samples = mcmc.get_samples(flat_unconstrained=True)
-    assert samples.is_cuda and samples.shape == (100 * 256, t.dim)
+    assert _landed(mcmc)
+    assert not samples.is_cuda and samples.shape == (100 * 256, t.dim)
     assert bool(torch.isfinite(samples).all())
     assert k3.launches > 0
 
@@ -276,6 +286,41 @@ def test_asss_drivers_go_through_k1(cuda, lockstep):
                                     n_chains=64)
     assert samples.is_cuda and bool(torch.isfinite(samples).all())
     assert int(last.i) == 60 and k1.launches > 0
+
+
+@pytest.mark.parametrize("path", ["asss_k3_kidiq", "arwmh_k1"])
+def test_mcmc_run_lands_pinned_draws(cuda, path):
+    """MCMC.run of fused ASSS on kidiq (K3's collect_n) and of the
+    lockstep ARWMH (K1, from its CUDA graph) hands back pinned host draws
+    and potentials in run_mcmc's views, equal bit for bit to run_mcmc's
+    device frames at the same generator seed copied with .cpu();
+    run_mcmc.host_bytes counts their bytes and the last state stays on the
+    card."""
+    if path == "arwmh_k1":
+        t = amt.eight_schools_noncentered()
+        k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=100))
+    else:
+        t = amt.kidiq()
+        k = amt.asss(t, amt.ASSSConfig(num_warmup=100, fused=True))
+    C, F, fields = 256, 50, ("potential_energy",)
+    want, want_extras, _ = amt.run_mcmc(
+        k, torch.Generator(cuda).manual_seed(3), 100, F * 4, thinning=4,
+        n_chains=C, extra_fields=fields)
+    assert want.is_cuda
+    profiling.clear()
+    mcmc = amt.MCMC(k, num_warmup=100, num_samples=F * 4, thinning=4,
+                    n_chains=C)
+    mcmc.run(torch.Generator(cuda).manual_seed(3), extra_fields=fields)
+    draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
+    pe = mcmc.get_extra_fields()["potential_energy"]
+    assert tuple(draws.shape) == (F, C, t.dim) and tuple(pe.shape) == (F, C)
+    for got, dev in ((draws, want), (pe, want_extras["potential_energy"])):
+        assert got.is_pinned() and not got.is_cuda
+        assert got.stride() == dev.stride()
+        assert torch.equal(got, dev.cpu())
+    assert profiling.totals()["run_mcmc.host_bytes"] == \
+        (draws.numel() + pe.numel()) * 4
+    assert all(x.is_cuda for x in state_tensors(mcmc.last_state))
 
 
 # the instantiations of K2 and K3 by target builder
@@ -412,7 +457,8 @@ def test_asss_main_path_goes_through_k3_per_target(cuda, name):
                     n_chains=128)
     mcmc.run(torch.Generator(cuda).manual_seed(1))
     samples = mcmc.get_samples(flat_unconstrained=True)
-    assert samples.is_cuda and samples.shape == (100 * 128, t.dim)
+    assert _landed(mcmc)
+    assert not samples.is_cuda and samples.shape == (100 * 128, t.dim)
     assert bool(torch.isfinite(samples).all())
     assert k3.launches > 0
 
@@ -426,7 +472,8 @@ def test_arwmh_main_path_goes_through_k2_per_target(cuda, name):
                     n_chains=128)
     mcmc.run(torch.Generator(cuda).manual_seed(1))
     samples = mcmc.get_samples(flat_unconstrained=True)
-    assert samples.is_cuda and samples.shape == (100 * 128, t.dim)
+    assert _landed(mcmc)
+    assert not samples.is_cuda and samples.shape == (100 * 128, t.dim)
     assert bool(torch.isfinite(samples).all())
     assert k2.launches > 0
 
@@ -696,7 +743,7 @@ def test_nuts_mcmc_runs_from_the_graph(cuda):
                     thinning=2, n_chains=256)
     mcmc.run(torch.Generator(cuda).manual_seed(0))
     draws = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
-    assert draws.is_cuda and draws.shape == (20, 256, 10)
+    assert draws.is_pinned() and draws.shape == (20, 256, 10)
     assert torch.isfinite(draws).all()
     assert "Step size" in mcmc.diagnostics_str()
 

@@ -373,3 +373,90 @@ def test_a_captured_launch_counts_once_per_replay(monkeypatch):
     replay()
     assert k1.launches == 13
     assert ops_cuda.launch_counts()["chol_update"] == 13
+
+
+# -- where the draws land: MCMC.run on the host, run_mcmc where made -------
+
+def _landing_kernel(name):
+    """ARWMH through the lockstep loop, or fused ASSS through ``collect_n``
+    (K3's plain version on the CPU), both built at the runs' warmup."""
+    t = amt.eight_schools_noncentered()
+    if name == "arwmh":
+        return amt.arwmh(t, amt.ARWMHConfig(num_warmup=20))
+    return amt.asss(t, amt.ASSSConfig(num_warmup=20, fused=True))
+
+
+@pytest.fixture
+def landings(monkeypatch):
+    """The calls of ``run_mcmc``'s landing of frames on the host, each
+    recorded by the fields it was given, the landing itself left as it
+    is."""
+    calls = []
+    land = tmcmc._to_host
+
+    def recorded(bufs, fields):
+        calls.append(tuple(fields))
+        return land(bufs, fields)
+
+    monkeypatch.setattr(tmcmc, "_to_host", recorded)
+    return calls
+
+
+@pytest.mark.parametrize("caller", ["run_mcmc", "checkpointed"])
+@pytest.mark.parametrize("name", ["arwmh", "asss"])
+def test_run_mcmc_keeps_its_frames_where_they_were_made(landings, tmp_path,
+                                                        name, caller):
+    """run_mcmc's default, and the checkpointed driver on it, leave the
+    frames where the run made them and never ask for the landing."""
+    k = _landing_kernel(name)
+    fields = ("potential_energy",)
+    if caller == "run_mcmc":
+        samples, extras, _ = amt.run_mcmc(k, _gen(5), 20, 40, thinning=4,
+                                          n_chains=3, extra_fields=fields)
+        for t in (samples, extras["potential_energy"]):
+            assert t.device.type == "cpu" and not t.is_pinned()
+    else:
+        from adaptive_mcmc_tpu_torch.infer import run_mcmc_checkpointed
+        samples, _, _ = run_mcmc_checkpointed(
+            k, _gen(5), 20, 40, thinning=4, n_chains=3, extra_fields=fields,
+            checkpoint_dir=tmp_path, chunk_size=20)
+        assert samples.shape == (10, 3, 10)
+    assert landings == []
+
+
+@pytest.mark.parametrize("name", ["arwmh", "asss"])
+def test_mcmc_run_equals_run_mcmc_bit_for_bit(landings, name):
+    """MCMC.run asks for the landing of exactly the requested fields, and
+    on the CPU hands back run_mcmc's draws and extras at the same seed, bit
+    for bit, in the same views."""
+    k = _landing_kernel(name)
+    fields = ("potential_energy",)
+    want, want_extras, want_last = amt.run_mcmc(
+        k, _gen(6), 20, 40, thinning=4, n_chains=3, extra_fields=fields)
+    assert landings == []
+    mcmc = amt.MCMC(k, num_warmup=20, num_samples=40, thinning=4,
+                    n_chains=3)
+    mcmc.run(_gen(6), extra_fields=fields)
+    assert landings == [("position", "potential_energy")]
+    got = mcmc.get_samples(group_by_chain=True, flat_unconstrained=True)
+    got_pe = mcmc.get_extra_fields()["potential_energy"]
+    for a, b in ((got, want), (got_pe, want_extras["potential_energy"])):
+        assert a.shape == b.shape and a.stride() == b.stride()
+        assert torch.equal(a, b)
+    for a, b in zip(tmcmc.state_tensors(mcmc.last_state),
+                    tmcmc.state_tensors(want_last)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ["arwmh", "asss"])
+def test_mcmc_run_lands_no_bytes_on_the_cpu(name):
+    """A CPU run's frames are on the host already: no bytes are copied
+    and run_mcmc.host_bytes stays 0."""
+    from adaptive_mcmc_tpu_torch.utils import profiling
+
+    profiling.clear()
+    mcmc = amt.MCMC(_landing_kernel(name), num_warmup=20, num_samples=40,
+                    thinning=4, n_chains=3)
+    mcmc.run(_gen(7), extra_fields=("potential_energy",))
+    assert profiling.totals().get("run_mcmc.host_bytes", 0) == 0
+    assert not mcmc.get_samples(flat_unconstrained=True).is_pinned()

@@ -259,9 +259,49 @@ def test_run_mcmc_records_its_phases(kernel):
     assert spans[collect].attrs == {"steps": 40, "thinning": 4}
     assert spans[warm].end_ns <= spans[collect].start_ns
     assert spans[0].seconds >= spans[warm].seconds + spans[collect].seconds
+    # a CPU run's frames are on the host already: nothing is copied
+    assert "run_mcmc.to_host" not in names
+    assert "run_mcmc.host_bytes" not in spans[0].counts
     if kernel == "asss":
         for i in (warm, collect):
             assert spans[i].counts["asss.machine_iters"] > 0
         assert spans[0].counts["asss.machine_iters"] == (
             spans[warm].counts["asss.machine_iters"]
             + spans[collect].counts["asss.machine_iters"])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["arwmh", "asss"])
+def test_run_mcmc_lands_its_frames_inside_collect(cuda, kernel):
+    """On the card MCMC.run's copy of its frames to pinned host memory is
+    one run_mcmc.to_host span inside run_mcmc.collect, after the
+    collection (the lockstep loop, ARWMH; K3's collect_n, fused ASSS), its
+    bytes those of the landed position and potential."""
+    target = amt.eight_schools_noncentered()
+    k = amt.arwmh(target, amt.ARWMHConfig(num_warmup=30)) \
+        if kernel == "arwmh" else \
+        amt.asss(target, amt.ASSSConfig(num_warmup=30, fused=True))
+    mcmc = amt.MCMC(k, num_warmup=30, num_samples=40, thinning=4,
+                    n_chains=64)
+    mcmc.run(torch.Generator(cuda).manual_seed(1))      # builds and warms
+    spans, _ = _traced(lambda: mcmc.run(
+        torch.Generator(cuda).manual_seed(2),
+        extra_fields=("potential_energy",)))
+    names = _by_name(spans)
+    (collect,), (landed,) = names["run_mcmc.collect"], \
+        names["run_mcmc.to_host"]
+    assert spans[landed].parent == collect
+    assert spans[collect].end_ns >= spans[landed].end_ns
+    n_bytes = 10 * 64 * (target.dim + 1) * 4
+    assert spans[landed].attrs == {}
+    assert spans[landed].counts == {"run_mcmc.host_bytes": n_bytes}
+    assert spans[0].counts["run_mcmc.host_bytes"] == n_bytes
+    assert mcmc.get_samples(group_by_chain=True,
+                            flat_unconstrained=True).is_pinned()
