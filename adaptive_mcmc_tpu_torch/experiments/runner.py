@@ -31,6 +31,7 @@ from adaptive_mcmc_tpu_torch.experiments.configs import (
     RunConfig,
 )
 from adaptive_mcmc_tpu_torch.infer.collect import collect_states_logscale
+from adaptive_mcmc_tpu_torch.infer.mcmc import collector
 from adaptive_mcmc_tpu_torch.utils import profiling
 from adaptive_mcmc_tpu_torch.utils.checkpoint import SweepManifest
 
@@ -63,23 +64,22 @@ def synchronize(device: torch.device) -> None:
 FUSED_KERNELS = {"arwmh": "K2", "asss": "K3"}
 
 
-def _driver_name(kernel, kernel_name: str) -> str:
-    """Which driver run_mcmc_sharded will pick for this kernel + the
-    w_eval extra_fields (provenance stamp for the saved npz): the fused
-    kernels stamp their own name (``collect_n:K2``, ``collect_n:K3``), so
-    a fused row never reads as the ASSS machine's ``collect_n``."""
-    fields = {"position", "potential_energy"}
-    if kernel_name in ("arwmh", "rwm", "asss"):
-        fields.add("as_change")
-    fused = f":{FUSED_KERNELS[kernel_name]}" \
-        if getattr(kernel.config, "fused", None) else ""
-    if getattr(kernel, "collect_n", None) is not None and fields <= set(
-        getattr(kernel, "collect_fields", ())
-    ):
-        return "collect_n" + fused
-    if getattr(kernel, "step_n", None) is not None:
-        return "step_n" + fused
-    return "lockstep"
+def _w_eval_fields(kernel) -> tuple:
+    """The extra fields a w_eval run collects beside the draws."""
+    if kernel.name in ("arwmh", "rwm", "asss"):
+        return ("potential_energy", "as_change")
+    return ("potential_energy",)
+
+
+def _driver_name(kernel) -> str:
+    """The driver that collects a w_eval run's fields
+    (``infer.mcmc.collector``), the provenance stamp of the saved npz: a
+    fused kernel adds its name (``collect_n:K2``, ``collect_n:K3``), so a
+    fused row never reads as the ASSS machine's ``collect_n``."""
+    name = collector(kernel, (kernel.sample_field, *_w_eval_fields(kernel)))
+    if getattr(kernel.config, "fused", False):
+        name += f":{FUSED_KERNELS[kernel.name]}"
+    return name
 
 
 def build_kernel(name: str, target, *, lr_decay: float, num_warmup: int,
@@ -180,9 +180,7 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
             mesh=mesh,
             max_steps_per_call=max_steps,
             fan_out=F,
-            extra_fields=("potential_energy", "as_change")
-            if kernel.name in ("arwmh", "rwm", "asss")
-            else ("potential_energy",),
+            extra_fields=_w_eval_fields(kernel),
         )
         synchronize(dev)
         wall = torch.tensor(time.perf_counter() - t0, dtype=torch.float64,
@@ -208,9 +206,8 @@ def run_w_eval(config: RunConfig, verbose: bool = True, *,
         "chain_iters_per_sec": total_iters / wall,
         # provenance stamp: which step driver generated these draws
         # (pipelined in-driver collector / pipelined step_n / plain
-        # lockstep, with :K2 / :K3 where fused).  Mirrors
-        # run_mcmc_sharded's choice.
-        "driver": _driver_name(kernel, config.kernel),
+        # lockstep, with :K2 / :K3 where fused)
+        "driver": _driver_name(kernel),
     }
     with profiling.span("run_w_eval.to_host"):
         draws = {"samples": _per_seed(samples),  # (seeds, draws, dim)
@@ -303,7 +300,7 @@ def run_lr_decay(
         meta = {"target": target_name, "kernel": kernel_name,
                 "lr_decay": tag, "n_pow": n_pow,
                 "wall_seconds": f"{wall:.2f}"}
-        if fused:
+        if getattr(kernel.config, "fused", False):
             # the stamp of a fused run, whose grid points are K2 / K3
             # step_n calls (the JAX summaries have no driver key, and a
             # default run's meta stays theirs)

@@ -14,13 +14,14 @@ calls into a CUDA graph and replays it (:class:`StepBlocks`; kernels that
 declare ``graph_step``, ARWMH, RWM and SA), or the parts of a step whose
 inner loop reads the host once per block of trips (:class:`LockstepGraph`;
 kernels that declare ``step_parts``, ASSS), and elsewhere the loop over
-steps is a Python loop.
+steps is a Python loop.  Which of these collects a run's frames is decided
+in one place (:func:`collector`), and :func:`_collect` is the one
+collection, which ``parallel.run_mcmc_sharded`` runs in chunks.
 
 :class:`MCMC` lands the draws it hands back in pinned host memory (one
-copy, straight from the device frames, behind the collection); the library
-callers of :func:`run_mcmc` (the sharded driver, the checkpointed driver,
-the reference draws of ``experiments.evaluate``) keep the frames on the
-device that made them.
+copy, straight from the device frames, behind the collection); the sharded
+driver, the checkpointed driver and the reference draws of
+``experiments.evaluate`` keep the frames on the device that made them.
 
 Spans and counters (``utils.profiling``): ``MCMC.run``; ``run_mcmc.warmup``
 (attribute ``steps``) and ``run_mcmc.collect`` (``steps``, ``thinning``)
@@ -362,7 +363,8 @@ def advancer(kernel, generator, state, block: int, eager: bool = False):
     """``advance(state, n) -> state``: ``n`` steps of ``kernel`` as
     :func:`run_mcmc` takes them.  Through ``step_n`` where the kernel has
     one (passing it ``eager``); on the card, unless ``eager``, from a
-    CUDA graph of ``block`` steps (:class:`StepBlocks`) where its ``step``
+    CUDA graph of ``block`` steps, at most ``MAX_GRAPH_STEPS`` (the
+    drivers pass the thinning; :class:`StepBlocks`), where its ``step``
     can be captured, or from the graphs of its step's parts
     (:class:`LockstepGraph`) where it has ``step_parts``; otherwise in a
     Python loop over ``step``.  Pass each call
@@ -374,7 +376,8 @@ def advancer(kernel, generator, state, block: int, eager: bool = False):
                               f"{kernel.name}.step")
         return lambda s, n: graph.advance(s, n)["s"]
     if kernel.graph_step and not eager and _on_card(state):
-        blocks = StepBlocks(kernel, generator, state, block)
+        blocks = StepBlocks(kernel, generator, state,
+                            min(block, MAX_GRAPH_STEPS))
         return lambda s, n: blocks.advance(n)
 
     def loop(s, n: int):
@@ -383,6 +386,39 @@ def advancer(kernel, generator, state, block: int, eager: bool = False):
         return s
 
     return loop
+
+
+def collector(kernel, fields: Sequence[str]) -> str:
+    """How :func:`_collect` collects ``fields``: ``"collect_n"`` where the
+    kernel buffers every one (ASSS, NUTS, fused ARWMH), otherwise the
+    frame loop over its ``step_n`` (``"step_n"``) or ``step``
+    (``"lockstep"``)."""
+    if kernel.collect_n is not None \
+            and set(fields) <= set(kernel.collect_fields):
+        return "collect_n"
+    return "lockstep" if kernel.step_n is None else "step_n"
+
+
+def _collect(kernel, state, advance, n_frames: int, thinning: int,
+             fields: Sequence[str], generator, draws: tuple = (),
+             eager: bool = False):
+    """``(state, {field: (n_frames, C, ...)})``: one ``collect_n`` call
+    (given the injected ``draws``) where :func:`collector` says so,
+    otherwise a frame of ``fields`` after each ``advance(state,
+    thinning)``.  The collection of :func:`run_mcmc` and of each chunk of
+    ``parallel.run_mcmc_sharded``."""
+    if n_frames and collector(kernel, fields) == "collect_n":
+        state, bufs = kernel.collect_n(state, n_frames, thinning, generator,
+                                       *draws, eager=eager)
+        # (C, F, ...) per chain -> (F, C, ...)
+        return state, {f: bufs[f].transpose(0, 1) for f in fields}
+    bufs = {f: getattr(state, f).new_empty(
+        (n_frames, *getattr(state, f).shape)) for f in fields}
+    for k in range(n_frames):
+        state = advance(state, thinning)
+        for f in fields:
+            bufs[f][k] = getattr(state, f)
+    return state, bufs
 
 
 def _to_host(bufs: dict, fields: Sequence[str]) -> dict:
@@ -455,9 +491,11 @@ def run_mcmc(
     Python loop instead; a CPU run and a run with injected draws always
     take it.
 
-    The frames stay on the run's device, where the library's callers
-    (``run_mcmc_sharded``, ``run_mcmc_checkpointed``, the reference draws
-    of ``experiments.evaluate``) use them.  ``to_host=True``, which
+    The frames are collected by :func:`_collect` (``collect_n`` where the
+    kernel buffers every requested field, :func:`collector`).  They stay
+    on the run's device, where the library's callers
+    (``run_mcmc_checkpointed``, the reference draws of
+    ``experiments.evaluate``) use them.  ``to_host=True``, which
     :meth:`MCMC.run` sets, lands the requested fields' frames in pinned
     host memory instead, inside the ``run_mcmc.collect`` span
     (:func:`_to_host`); a CPU run's frames are already there.
@@ -465,13 +503,7 @@ def run_mcmc(
     """
     if num_samples % thinning:
         raise ValueError("num_samples must divide by thinning")
-    num_collect = num_samples // thinning
-    sample_field = kernel.sample_field
-    fields = (sample_field, *extra_fields)
-    collect_n = kernel.collect_n
-    if collect_n is not None and not set(fields) <= set(kernel.collect_fields):
-        collect_n = None
-
+    fields = (kernel.sample_field, *extra_fields)
     state = (
         kernel.init(generator, n_chains=n_chains, position=init_position,
                     device=device)
@@ -480,7 +512,10 @@ def run_mcmc(
     total = num_warmup + num_samples
     if (noise is None) != (unif is None):
         raise ValueError("pass both noise and unif, or neither")
-    if noise is not None:
+    if noise is None:
+        advance = advancer(kernel, generator, state, thinning, eager)
+        draws = ()
+    else:
         if kernel.name not in _NOISE_UNIF_KERNELS:
             raise ValueError(
                 f"run_mcmc replays injected noise/unif only for "
@@ -488,57 +523,33 @@ def run_mcmc(
                 f"injected draws through its own step")
         if noise.shape[0] != total or unif.shape[0] != total:
             raise ValueError(f"injected draws must cover {total} steps")
+        t0 = 0
 
-    def draws(t0: int, n: int) -> tuple:
-        if noise is None:
-            return ()
-        return noise[t0:t0 + n], unif[t0:t0 + n]
-
-    if noise is None:
-        steps = advancer(kernel, generator, state,
-                         min(thinning, MAX_GRAPH_STEPS), eager)
-
-        def advance(state, t0: int, n: int):
-            return steps(state, n)
-    else:
-        def advance(state, t0: int, n: int):
+        def advance(state, n: int):
+            # each call takes the next n steps' draws
+            nonlocal t0
+            t0 += n
             if kernel.step_n is not None:
-                return kernel.step_n(state, n, generator, *draws(t0, n))
-            for t in range(t0, t0 + n):
+                return kernel.step_n(state, n, generator, noise[t0 - n:t0],
+                                     unif[t0 - n:t0])
+            for t in range(t0 - n, t0):
                 state = kernel.step(state, generator, noise[t], unif[t])
             return state
 
+        draws = (noise[num_warmup:], unif[num_warmup:])
+
     if num_warmup:
         with profiling.span("run_mcmc.warmup", steps=num_warmup):
-            state = advance(state, 0, num_warmup)
+            state = advance(state, num_warmup)
 
-    collect = profiling.span("run_mcmc.collect", steps=num_samples,
-                             thinning=thinning)
-    if collect_n is not None and num_collect:
-        with collect:
-            state, bufs = collect_n(state, num_collect, thinning, generator,
-                                    *draws(num_warmup, num_samples),
-                                    eager=eager)
-            if to_host:
-                bufs = _to_host(bufs, fields)
-        samples = bufs[sample_field].transpose(0, 1)
-        extras = {f: bufs[f].transpose(0, 1) for f in extra_fields}
-        return samples, extras, state
-
-    bufs = {
-        f: torch.empty((num_collect,) + tuple(getattr(state, f).shape),
-                       dtype=getattr(state, f).dtype,
-                       device=getattr(state, f).device)
-        for f in fields
-    }
-    with collect:
-        for k in range(num_collect):
-            state = advance(state, num_warmup + k * thinning, thinning)
-            for f in fields:
-                bufs[f][k] = getattr(state, f)
+    with profiling.span("run_mcmc.collect", steps=num_samples,
+                        thinning=thinning):
+        state, bufs = _collect(kernel, state, advance,
+                               num_samples // thinning, thinning, fields,
+                               generator, draws, eager)
         if to_host:
             bufs = _to_host(bufs, fields)
-    samples = bufs.pop(sample_field)
+    samples = bufs.pop(kernel.sample_field)
     return samples, bufs, state
 
 
@@ -657,8 +668,9 @@ def _frozen(kernel):
     if getattr(kernel.config, "adapt", False) \
             and kernel.name in _KERNEL_FACTORIES:
         changes = {"adapt": False}
-        if getattr(kernel.config, "fused", None):
-            changes["fused"] = None      # the fused drivers always adapt
+        if getattr(kernel.config, "fused", False):
+            # the fused drivers always adapt; the rollout steps by ``step``
+            changes["fused"] = False
         kernel = _KERNEL_FACTORIES[kernel.name](
             kernel.target, dataclasses.replace(kernel.config, **changes))
     step = kernel.step

@@ -50,8 +50,9 @@ class ARWMHConfig:
     # Fused whole-sweep driver (kernel K2): step_n / collect_n run the
     # transition loop in one launch.  None resolves to on where a CUDA
     # device is present, the sampler adapts, d <= 16 and AMT_ARWMH_FUSED=1
-    # (the JAX package's opt-in), else off.  Its random streams differ from
-    # the lockstep step's: equal in distribution only.
+    # (the JAX package's opt-in), else off; the built kernel's config holds
+    # the resolved value.  Its random streams differ from the lockstep
+    # step's: equal in distribution only.
     fused: Optional[bool] = None
 
 
@@ -202,7 +203,7 @@ def arwmh(target, config: ARWMHConfig = ARWMHConfig()) -> Kernel:
     return Kernel(
         name="arwmh",
         target=target,
-        config=config,
+        config=dataclasses.replace(config, fused=bool(use_fused)),
         init=init,
         step=step,
         step_n=step_n,

@@ -99,9 +99,9 @@ class ASSSConfig:
     num_warmup: int = 0
     adapt: bool = True
     # step_n / collect_n in one launch of kernel K3.  None resolves to on
-    # where a CUDA device is present and AMT_ASSS_FUSED=1, else off.  Its
-    # random streams differ from the plain drivers': equal in distribution
-    # only.
+    # where a CUDA device is present and AMT_ASSS_FUSED=1, else off; the
+    # built kernel's config holds the resolved value.  Its random streams
+    # differ from the plain drivers': equal in distribution only.
     fused: Optional[bool] = None
 
 
@@ -381,7 +381,7 @@ def asss(target, config: ASSSConfig = ASSSConfig()) -> Kernel:
     return Kernel(
         name="asss",
         target=target,
-        config=config,
+        config=dataclasses.replace(config, fused=bool(use_fused)),
         init=init,
         step=step,
         step_n=step_n,

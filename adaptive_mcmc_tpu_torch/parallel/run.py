@@ -29,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from adaptive_mcmc_tpu_torch.infer.mcmc import (
-    MAX_GRAPH_STEPS,
+    _collect,
     advancer,
     map_state,
 )
@@ -121,16 +121,14 @@ def run_mcmc_sharded(
 
     ``max_steps_per_call`` bounds the steps of one call of the kernel's
     driver: the warmup runs in chunks of that many steps, the collection in
-    chunks of ``max_steps_per_call // thinning`` frames.  Where the kernel
-    buffers every requested field (``collect_n``: ASSS, NUTS, fused ARWMH)
-    each chunk is one ``collect_n`` call, otherwise the thinned frames are
-    read after each ``thinning`` steps of the advancer (``infer.mcmc
-    .advancer``: ``step_n`` where the kernel has one, the CUDA graph of
-    lockstep steps on the card, the Python loop elsewhere).  For a lockstep
-    kernel a chunk boundary changes no draw: chunked equals unchunked bit
-    for bit.  A pipelined machine (ASSS, NUTS) ends each call at a barrier
-    where every chain has made its steps, as the JAX machine does, so there
-    the chunks change the draws but not their distribution.
+    chunks of ``max_steps_per_call // thinning`` frames, each chunk
+    ``run_mcmc``'s collection (``infer.mcmc._collect``: one ``collect_n``
+    call where the kernel buffers every requested field, otherwise the
+    thinned frame loop over the run's advancer).  For a lockstep kernel a
+    chunk boundary changes no draw: chunked equals unchunked bit for bit.
+    A pipelined machine (ASSS, NUTS) ends each call at a barrier where
+    every chain has made its steps, as the JAX machine does, so there the
+    chunks change the draws but not their distribution.
 
     ``fan_out=F`` warms up the chains, then clones each into F chains
     (:func:`fan_state`, on each process's block) and collects
@@ -164,17 +162,11 @@ def run_mcmc_sharded(
     if generator is not None:
         generator = rank_generator(generator, mesh.rank)
     num_collect = num_samples // thinning // fan_out
-    sample_field = kernel.sample_field
-    fields = (sample_field, *extra_fields)
-    collect_n = kernel.collect_n
-    if collect_n is not None and not set(fields) <= set(kernel.collect_fields):
-        collect_n = None        # a requested field is not buffered
-
+    fields = (kernel.sample_field, *extra_fields)
     state = init_state if init_state is not None else kernel.init(
         generator, n_chains=rows.stop - rows.start, position=init_position,
         device=mesh.device)
-    block = min(thinning, MAX_GRAPH_STEPS)
-    advance = advancer(kernel, generator, state, block, eager)
+    advance = advancer(kernel, generator, state, thinning, eager)
     cap = max_steps_per_call or max(num_warmup + num_samples, 1)
     done = 0
     while done < num_warmup:
@@ -185,39 +177,25 @@ def run_mcmc_sharded(
 
     if fan_out > 1:
         state = fan_state(state, fan_out)
-        advance = advancer(kernel, generator, state, block, eager)
+        advance = advancer(kernel, generator, state, thinning, eager)
 
-    if collect_n is not None and num_collect:
-        frames_per_call = max(1, cap // thinning)
-        chunks = []
-        collected = 0
-        while collected < num_collect:
-            todo = min(frames_per_call, num_collect - collected)
-            with profiling.span("run_mcmc_sharded.collect",
-                                steps=todo * thinning):
-                state, bufs = collect_n(state, todo, thinning, generator,
-                                        eager=eager)
-            # (C, F, ...) per chain -> (F, C, ...)
-            chunks.append({f: bufs[f].transpose(0, 1) for f in fields})
-            collected += todo
-        out = {f: torch.cat([c[f] for c in chunks]) if len(chunks) > 1
-               else chunks[0][f] for f in fields}
-    else:
-        out = {f: torch.empty((num_collect,) + tuple(getattr(state, f).shape),
-                              dtype=getattr(state, f).dtype,
-                              device=getattr(state, f).device)
-               for f in fields}
+    frames_per_call = max(1, cap // thinning)
+    chunks = []
+    # no frame to collect: one empty chunk, the fields' empty frames
+    for start in range(0, num_collect, frames_per_call) or (0,):
+        todo = min(frames_per_call, num_collect - start)
         with profiling.span("run_mcmc_sharded.collect",
-                            steps=num_collect * thinning):
-            for k in range(num_collect):
-                state = advance(state, thinning)
-                for f in fields:
-                    out[f][k] = getattr(state, f)
+                            steps=todo * thinning):
+            state, bufs = _collect(kernel, state, advance, todo, thinning,
+                                   fields, generator, eager=eager)
+        chunks.append(bufs)
+    out = {f: torch.cat([c[f] for c in chunks]) if len(chunks) > 1
+           else chunks[0][f] for f in fields}
     if generator is not caller:
         caller.set_state(generator.get_state())
     with profiling.span("run_mcmc_sharded.gather"):
         out = {f: gather_chains(v, mesh, dim=1) for f, v in out.items()}
-    samples = out.pop(sample_field)
+    samples = out.pop(kernel.sample_field)
     return samples, out, state
 
 

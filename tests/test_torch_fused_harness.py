@@ -53,12 +53,26 @@ def test_build_kernel_fused_reaches_the_plain_versions(kernel, monkeypatch):
     g = torch.Generator().manual_seed(0)
     k.step_n(k.init(g, n_chains=2), 3, g)
     assert calls
-    assert runner._driver_name(k, kernel) == STAMP[kernel]
+    assert runner._driver_name(k) == STAMP[kernel]
     default = runner.build_kernel(kernel, amt.diamonds(), lr_decay=2 / 3,
                                   num_warmup=2)
-    assert default.config.fused is None
-    assert runner._driver_name(default, kernel) in ("lockstep",
-                                                    "collect_n")
+    assert default.config.fused is False
+    assert runner._driver_name(default) in ("lockstep", "collect_n")
+
+
+@pytest.mark.parametrize("kernel", ["arwmh", "asss"])
+def test_fused_none_is_stamped_as_the_kernel_it_resolves_to(kernel,
+                                                            monkeypatch):
+    """fused=None where a card is present and AMT_*_FUSED=1 builds K2 / K3:
+    the kernel's config holds the resolved True, and the w_eval stamp names
+    the fused kernel, not the ASSS machine's collect_n."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setenv("AMT_ASSS_FUSED", "1")
+    monkeypatch.setenv("AMT_ARWMH_FUSED", "1")
+    k = runner.build_kernel(kernel, amt.eight_schools_noncentered(),
+                            lr_decay=2 / 3, num_warmup=2, fused=None)
+    assert k.config.fused is True
+    assert runner._driver_name(k) == STAMP[kernel]
 
 
 @pytest.mark.parametrize("kernel", ["nuts", "sa", "rwm"])

@@ -1,11 +1,14 @@
 """The parallel layer of the port (adaptive_mcmc_tpu_torch.parallel) in one
 process: fan_state's clone-major layout against JAX's on the same state,
-run_mcmc_sharded against the port's run_mcmc bit for bit (ARWMH's lockstep
-loop, ASSS's collect_n), chunked runs against unchunked ones, fan-out
-shapes, the one-process chain mesh, and the collectives against JAX's on
-its 8-device CPU test mesh (rtol 1e-5) and against plain torch and the
-split R̂ of infer.diagnostics.  The mesh over several processes:
+run_mcmc_sharded against the port's run_mcmc bit for bit and call for call
+(every outcome of infer.mcmc.collector: the lockstep loop, collect_n,
+step_n's frame loop, K2's and K3's plain versions), chunked runs against
+unchunked ones, fan-out shapes, the one-process chain mesh, and the
+collectives against JAX's on its 8-device CPU test mesh (rtol 1e-5) and
+against plain torch and the split R̂ of infer.diagnostics.  The mesh over several processes:
 tests/test_torch_distributed.py."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -22,7 +25,10 @@ from adaptive_mcmc_tpu import models as jm  # noqa: E402
 from adaptive_mcmc_tpu import parallel as jpar  # noqa: E402
 from adaptive_mcmc_tpu.parallel.run import fan_state as jfan  # noqa: E402
 import adaptive_mcmc_tpu_torch as amt  # noqa: E402
-from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors  # noqa: E402
+from adaptive_mcmc_tpu_torch.infer.mcmc import (  # noqa: E402
+    collector,
+    state_tensors,
+)
 from adaptive_mcmc_tpu_torch.infer.diagnostics import (  # noqa: E402
     gelman_rubin,
 )
@@ -72,16 +78,58 @@ def test_fan_state_layout_matches_jax():
         np.repeat(pos[:, None], F, axis=1))
 
 
-@pytest.mark.parametrize("name", ["arwmh", "asss"])
+def _spied(kernel, calls: list):
+    """``kernel`` with its ``step``, ``step_n`` and ``collect_n`` each
+    appending its name to ``calls`` when called."""
+    def spy(name, fn):
+        def call(*a, **kw):
+            calls.append(name)
+            return fn(*a, **kw)
+        return call
+
+    return dataclasses.replace(kernel, **{
+        n: spy(n, getattr(kernel, n))
+        for n in ("step", "step_n", "collect_n")
+        if getattr(kernel, n) is not None})
+
+
+# every outcome of infer.mcmc.collector: (kernel, extra fields, collector)
+SHARDED_CASES = {
+    "arwmh": (lambda t: amt.arwmh(t, amt.ARWMHConfig(num_warmup=6)),
+              ("potential_energy", "as_change"), "lockstep"),
+    "asss": (lambda t: amt.asss(t, amt.ASSSConfig(num_warmup=6)),
+             ("potential_energy", "as_change"), "collect_n"),
+    "nuts": (lambda t: amt.nuts(t, amt.NUTSConfig(num_warmup=6)),
+             ("potential_energy",), "collect_n"),
+    "nuts_diverging": (lambda t: amt.nuts(t, amt.NUTSConfig(num_warmup=6)),
+                       ("diverging",), "step_n"),
+    "arwmh_k2": (lambda t: amt.arwmh(t, amt.ARWMHConfig(num_warmup=6,
+                                                        fused=True)),
+                 ("potential_energy", "as_change"), "collect_n"),
+    "asss_k3": (lambda t: amt.asss(t, amt.ASSSConfig(num_warmup=6,
+                                                     fused=True)),
+                ("potential_energy", "as_change"), "collect_n"),
+}
+
+
+@pytest.mark.parametrize("name", list(SHARDED_CASES))
 def test_sharded_equals_run_mcmc(name):
-    t = amt.eight_schools_noncentered()
-    k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=6)) if name == "arwmh" \
-        else amt.asss(t, amt.ASSSConfig(num_warmup=6))
-    fields = ("potential_energy", "as_change")
-    want = amt.run_mcmc(k, _gen(3), 6, 12, thinning=3, n_chains=8,
-                        extra_fields=fields)
-    got = run_mcmc_sharded(k, _gen(3), 6, 12, thinning=3, n_chains=8,
-                           extra_fields=fields)
+    """run_mcmc_sharded on one process equals run_mcmc bit for bit, through
+    the same driver calls in the same order, for every way a run's frames
+    are collected (the fused kernels through K2's and K3's plain
+    versions)."""
+    build, fields, how = SHARDED_CASES[name]
+    k = build(amt.eight_schools_noncentered())
+    assert collector(k, ("position", *fields)) == how
+    want_calls, got_calls = [], []
+    want = amt.run_mcmc(_spied(k, want_calls), _gen(3), 6, 12, thinning=3,
+                        n_chains=8, extra_fields=fields)
+    got = run_mcmc_sharded(_spied(k, got_calls), _gen(3), 6, 12, thinning=3,
+                           n_chains=8, extra_fields=fields)
+    assert got_calls == want_calls
+    assert ("collect_n" in got_calls) == (how == "collect_n")
+    assert set(got_calls) <= ({"step"} if how == "lockstep"
+                              else {"step_n", "collect_n"})
     assert got[0].shape == (4, 8, 10)
     assert torch.equal(got[0], want[0])
     for f in fields:
