@@ -13,10 +13,14 @@ recursion:
 
 The state is a batch of ``(C, ...)`` tensors.  The lockstep ``step`` takes
 its draws from a ``torch.Generator`` or, for replay, from injected
-``noise`` (C, d) and ``unif`` (C,).  The rank-1 update goes through kernel
-K1 (``ops/cholesky.py``).  ``ARWMHConfig(fused=True)`` adds ``step_n`` and
-``collect_n`` that run whole sweeps in kernel K2
-(``ops/cuda/arwmh_fused.py``).
+``noise`` (C, d) and ``unif`` (C,).  Around the target's potential it runs
+three steps, :func:`propose_plain`, :func:`accept_plain` and
+:func:`settle_plain`, with the rank-1 update through kernel K1
+(``ops/cuda/chol_update.py``) between the last two; on a CUDA state each of
+the three is a kernel of ``ops/cuda/arwmh_step.py``, which repeats its
+operations (the proposal's sum in an order of its own, as_change's too).
+``ARWMHConfig(fused=True)`` adds ``step_n`` and ``collect_n`` that run whole
+sweeps in kernel K2 (``ops/cuda/arwmh_fused.py``).
 """
 
 from __future__ import annotations
@@ -33,8 +37,10 @@ from adaptive_mcmc_tpu_torch.kernels.base import (
     batch_positions,
     nan_to_inf,
 )
-from adaptive_mcmc_tpu_torch.ops.cholesky import adaptive_scale_update
+from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_step
 from adaptive_mcmc_tpu_torch.ops.cuda.arwmh_fused import build_fused_arwmh
+from adaptive_mcmc_tpu_torch.ops.cuda.arwmh_step import Accepted
+from adaptive_mcmc_tpu_torch.ops.cuda.chol_update import chol_update
 
 Tensor = torch.Tensor
 
@@ -83,6 +89,60 @@ def _draws(generator, C: int, d: int, device, noise, unif):
     return noise, unif
 
 
+def propose_plain(x: Tensor, L: Tensor, log_lam: Tensor, noise: Tensor,
+                  eps: float) -> Tensor:
+    """The proposal ``x + (L e^λ + ε I) z``: the plain version of
+    ``ops/cuda/arwmh_step.propose``."""
+    prop_scale = L * torch.exp(log_lam)[:, None, None] \
+        + eps * torch.eye(x.shape[1], device=x.device)
+    return x + torch.einsum("cij,cj->ci", prop_scale, noise)
+
+
+def accept_plain(x, pe, x_prop, pe_prop, u, mean_ap, i, loc, L, log_lam, *,
+                 num_warmup: int, lr_decay: float, target_accept_prob: float,
+                 adapt: bool) -> Accepted:
+    """The MH select, the running mean of acceptance and the adaptation up
+    to K1's inputs: the plain version of ``ops/cuda/arwmh_step.accept``."""
+    pe_prop = nan_to_inf(pe_prop)
+    accept_prob = torch.exp(pe - pe_prop).clamp_max(1.0)
+    accepted = u < accept_prob
+    x_new = torch.where(accepted[:, None], x_prop, x)
+    pe_new = torch.where(accepted, pe_prop, pe)
+    n, gamma = adaptation_lr(i, num_warmup, lr_decay)
+    mean_new = mean_ap + (accept_prob - mean_ap) / n.to(torch.float32)
+    if not adapt:
+        return Accepted(x_new, pe_new, mean_new)
+    delta = x_new - loc
+    coef = gamma.expand(x.shape[0])
+    return Accepted(
+        x_new, pe_new, mean_new,
+        loc=loc + gamma * delta,
+        log_step_size=log_lam + gamma * (accept_prob - target_accept_prob),
+        scaled=torch.sqrt(1.0 - coef)[:, None, None] * L,
+        delta=delta,
+        gamma=coef.contiguous(),
+    )
+
+
+def settle_plain(L: Tensor, updated: Tensor, log_lam: Tensor,
+                 log_lam_new: Tensor, i: Tensor) -> tuple:
+    """``(L', as_change, i + 1)``: the per-chain NaN guard on K1's result,
+    ``‖L' e^{λ'} − L e^λ‖_F`` and the clock; the plain version of
+    ``ops/cuda/arwmh_step.settle``."""
+    bad = torch.isnan(updated).any(dim=-1).any(dim=-1)
+    L_new = torch.where(bad[:, None, None], L, updated)
+    as_change = torch.linalg.matrix_norm(
+        L_new * torch.exp(log_lam_new)[:, None, None]
+        - L * torch.exp(log_lam)[:, None, None])
+    return L_new, as_change, i + 1
+
+
+# the step's operations around the potential, by where the state lives: the
+# kernels of csrc/arwmh_step.cu on the card, their plain versions elsewhere
+_PLAIN = (propose_plain, accept_plain, settle_plain)
+_CARD = (arwmh_step.propose, arwmh_step.accept, arwmh_step.settle)
+
+
 def arwmh(target, config: ARWMHConfig = ARWMHConfig()) -> Kernel:
     d = target.dim
     potential = target.potential_fn
@@ -114,46 +174,27 @@ def arwmh(target, config: ARWMHConfig = ARWMHConfig()) -> Kernel:
              unif: Optional[Tensor] = None) -> ARWMHState:
         loc, L, log_lam = state.adapt_state
         x, pe = state.position, state.potential_energy
-        C = x.shape[0]
-        noise, u = _draws(generator, C, d, x.device, noise, unif)
-
-        step_size = torch.exp(log_lam)  # (C,)
-        prop_scale = L * step_size[:, None, None] \
-            + config.eps * torch.eye(d, device=x.device)
-        x_prop = x + torch.einsum("cij,cj->ci", prop_scale, noise)
-
-        pe_prop = nan_to_inf(potential(x_prop))
-        accept_prob = torch.exp(pe - pe_prop).clamp_max(1.0)
-        accepted = u < accept_prob
-
-        x_new = torch.where(accepted[:, None], x_prop, x)
-        pe_new = torch.where(accepted, pe_prop, pe)
-
-        n, gamma = adaptation_lr(state.i, config.num_warmup, config.lr_decay)
-        mean_ap = state.mean_accept_prob
-        mean_ap_new = mean_ap + (accept_prob - mean_ap) / n.to(torch.float32)
-
+        noise, u = _draws(generator, x.shape[0], d, x.device, noise, unif)
+        propose, accept, settle = _CARD if x.is_cuda else _PLAIN
+        x_prop = propose(x, L, log_lam, noise, config.eps)
+        new = accept(x, pe, x_prop, potential(x_prop), u,
+                     state.mean_accept_prob, state.i, loc, L, log_lam,
+                     num_warmup=config.num_warmup, lr_decay=config.lr_decay,
+                     target_accept_prob=config.target_accept_prob,
+                     adapt=config.adapt)
         if config.adapt:
-            delta = x_new - loc
-            loc_new = loc + gamma * delta
-            L_new = adaptive_scale_update(L, delta, gamma.expand(C))
-            log_lam_new = log_lam + gamma * (
-                accept_prob - config.target_accept_prob
-            )
-            as_change = torch.linalg.matrix_norm(
-                L_new * torch.exp(log_lam_new)[:, None, None]
-                - L * step_size[:, None, None]
-            )
-            adapt_new = ARWMHAdaptState(loc_new, L_new, log_lam_new)
+            L_new, as_change, i_new = settle(
+                L, chol_update(new.scaled, new.delta, new.gamma), log_lam,
+                new.log_step_size, state.i)
+            adapt_new = ARWMHAdaptState(new.loc, L_new, new.log_step_size)
         else:
-            adapt_new = state.adapt_state
-            as_change = torch.zeros_like(pe)
-
+            adapt_new, as_change, i_new = (state.adapt_state,
+                                           torch.zeros_like(pe), state.i + 1)
         return ARWMHState(
-            i=state.i + 1,
-            position=x_new,
-            potential_energy=pe_new,
-            mean_accept_prob=mean_ap_new,
+            i=i_new,
+            position=new.position,
+            potential_energy=new.potential_energy,
+            mean_accept_prob=new.mean_accept_prob,
             adapt_state=adapt_new,
             as_change=as_change,
         )

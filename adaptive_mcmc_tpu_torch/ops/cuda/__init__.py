@@ -5,9 +5,13 @@ wrapper runs for CPU tensors, and a launch counter:
 * ``chol_update`` — K1, the batched rank-1 Cholesky update;
 * ``arwmh_fused`` — K2, the fused ARWMH sweep;
 * ``asss_fused`` — K3, the fused ASSS sweep;
-* ``auction`` — the ε-auction's round (``metrics/assignment.py``).
+* ``auction`` — the ε-auction's round (``metrics/assignment.py``);
+* ``arwmh_step`` — the ARWMH lockstep step's propose, accept and settle
+  kernels around the target's potential (their plain versions are in
+  ``kernels/arwmh.py``).
 
-A wrapper adds one to its module's ``launches`` where it launches its kernel.
+A wrapper adds one to its kernel's counter (``LAUNCH_COUNTERS``: a module's
+``launches``, or ``arwmh_step``'s one per kernel) where it launches it.
 Nothing else writes a count, with one exception: a launch recorded into a
 CUDA graph runs once per replay of that graph and not at capture, so whoever
 captures one counts it so (:class:`CapturedLaunches`).
@@ -15,7 +19,16 @@ captures one counts it so (:class:`CapturedLaunches`).
 
 import importlib
 
-KERNEL_MODULES = ("chol_update", "arwmh_fused", "asss_fused", "auction")
+# every kernel's launch counter by the kernel's name: (module, attribute)
+LAUNCH_COUNTERS = {
+    "chol_update": ("chol_update", "launches"),
+    "arwmh_fused": ("arwmh_fused", "launches"),
+    "asss_fused": ("asss_fused", "launches"),
+    "auction": ("auction", "launches"),
+    "arwmh_propose": ("arwmh_step", "propose_launches"),
+    "arwmh_accept": ("arwmh_step", "accept_launches"),
+    "arwmh_settle": ("arwmh_step", "settle_launches"),
+}
 
 # The device potentials (csrc/common.cuh) each fused sweep is built for, by
 # the tag a target builder sets (Target.device_potential) when its
@@ -49,8 +62,9 @@ def _kernel_module(name: str):
 
 
 def launch_counts() -> dict:
-    """The launch count of every kernel module, by name."""
-    return {n: _kernel_module(n).launches for n in KERNEL_MODULES}
+    """The launch count of every kernel, by name."""
+    return {n: getattr(_kernel_module(m), a)
+            for n, (m, a) in LAUNCH_COUNTERS.items()}
 
 
 class CapturedLaunches:
@@ -75,4 +89,6 @@ class CapturedLaunches:
 
     def _add(self, sign: int) -> None:
         for name, n in self._recorded.items():
-            _kernel_module(name).launches += sign * n
+            module, attr = LAUNCH_COUNTERS[name]
+            module = _kernel_module(module)
+            setattr(module, attr, getattr(module, attr) + sign * n)

@@ -4,8 +4,8 @@ GPU and check it.
 
     python3 chip_smoke.py
 
-Needs one CUDA card and nvcc; builds the three kernel sources from csrc/ at
-the start, one nvcc process each, all at once.  K2 and K3 have one
+Needs one CUDA card and nvcc; builds the kernel sources from csrc/ at the
+start, one nvcc process each, all at once.  K2 and K3 have one
 instantiation per device potential (csrc/common.cuh): eight schools
 noncentered and centered (d = 10), kidiq (d = 4) and diamonds (d = 26).
 Phases, in order; any failure ends the run with a non-zero exit:
@@ -23,7 +23,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    torch.linalg.cholesky_ex of the re-formed L Lᵀ + coef v vᵀ at
    (4096, 10), (1024, 26), (417792, 10), the batch of 4096 chains x 102
    the SA sampler brings, and the SA path's (1024, 10) and (104448, 10)
-   (CUDA events around CUDA-graph replays);
+   (CUDA events around CUDA-graph replays); then the ARWMH lockstep step's
+   kernels (csrc/arwmh_step.cu) against the plain operators they replace
+   on the same inputs at (4096, 10) and (100, 26), a NaN potential, a
+   rejection by NaN and an update that goes NaN among them: propose within
+   the bound of two summation orders, accept -> K1 -> settle bit for bit
+   but as_change (within d^2 + 1 ulp), and the card times of each beside
+   its plain ops and its bound (each must beat its plain ops at
+   (4096, 10));
 3. K2 (csrc/arwmh_fused.cu), each instantiation against its plain version
    on injected draws, 16 steps with frames: eight schools noncentered and
    centered at (4096, 10), kidiq at (4096, 4), diamonds at (1024, 26);
@@ -37,7 +44,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    bit);
 5. the ARWMH main path: MCMC(arwmh(eight_schools_noncentered()),
    num_warmup=5000, num_samples=20000, thinning=10, n_chains=4096) with the
-   lockstep step (through K1, its steps replayed from a CUDA graph) and
+   lockstep step (through the step's three kernels and K1, each launched
+   once a step, its steps replayed from a CUDA graph) and
    with ARWMHConfig(fused=True) (through K2), and the µs per step of a long
    K2 step_n; before it, the graph run of 500 + 1500 lockstep steps against
    the eager loop from the same seed bit for bit;
@@ -169,8 +177,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    rollout step at 100000 chains eagerly and from its graphs beside PR 9's
    (torch.profiler; last, because the profiler once on slows every later
    launch of the process);
-9. one JSON line of kernel results, one entry per K1 kernel and per K2/K3
-   instantiation (with its
+9. one JSON line of kernel results, one entry per K1 kernel, per K2/K3
+   instantiation, for the auction's round and for each of the ARWMH step's
+   kernels (with its
    lanes per chain and its bound: the larger of the bytes it must move over
    3.35 TB/s and its float operations over 67 TFLOP/s, counted from the
    check's inputs and, for K3, its iteration counts), then the contract
@@ -206,7 +215,8 @@ PROFILE_STEPS = {"eager": 200, "graph": 1000}
 # chains: the first update per chain, the next two per candidate
 K1_SA_SHAPES = ((1024, 10), (104448, 10))
 K1_SHAPES = ((4096, 10), (1024, 26), (417792, 10)) + K1_SA_SHAPES
-KERNELS = ("chol_update", "arwmh_fused", "asss_fused", "auction")
+KERNELS = ("chol_update", "arwmh_fused", "asss_fused", "auction",
+           "arwmh_step")
 # the slice: ASSS on diamonds through K3, sized from the JAX package's ASSS
 # on the CPU (64 chains, pipelined driver), which needed 200000 warmup
 # steps before the gold bands held (PERF.md)
@@ -370,6 +380,14 @@ K3_REPLACES = "adaptive_mcmc_tpu/ops/pallas/asss_fused.py:526"
 # the auction kernel replaces no Pallas kernel: the JAX round is XLA
 AUCTION_REPLACES = "none (adaptive_mcmc_tpu/metrics/assignment.py, XLA)"
 K1_REPLACES = "adaptive_mcmc_tpu/ops/pallas/chol_update.py:107"
+# the ARWMH lockstep step's kernels replace no Pallas kernel: the JAX step
+# is one jitted program; their shapes: the main path's and diamonds' on the
+# harness's default driver, the first the kernels line's
+STEP_REPLACES = "none (adaptive_mcmc_tpu/kernels/arwmh.py step, XLA)"
+STEP_SHAPES = ((4096, 10), (100, 26))
+STEP_EPS = 1e-6
+STEP_KW = dict(num_warmup=5, lr_decay=2.0 / 3.0, target_accept_prob=0.234,
+               adapt=True)
 TARGETS = ("eight_schools_noncentered", "eight_schools_centered", "kidiq",
            "diamonds")
 # the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
@@ -566,6 +584,137 @@ def check_k1(k1, dev, card: str) -> dict:
     times = {shape: k1_times(k1, dev, *shape, card) for shape in K1_SHAPES}
     return {layout: {"max_abs_err": worst[layout], **res}
             for layout, res in times[K1_SHAPES[0]].items()}
+
+
+def step_inputs(C: int, d: int, seed: int, dev) -> dict:
+    """A state and a proposal's results at (C, d) for the ARWMH step's
+    kernels: chol_inputs' factors, a NaN potential in chain 0's state, a
+    NaN proposed potential in chain 1 (a rejection) and in chain 2 a mean
+    at +inf, whose rank-1 update goes NaN (the guard keeps the factor)."""
+    Lt, _, _ = chol_inputs(C, d, seed, dev)
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    p = dict(x=normal(C, d), pe=normal(C).abs() * 5, x_prop=normal(C, d),
+             pe_prop=normal(C).abs() * 5,
+             u=torch.rand((C,), generator=g, device=dev),
+             mean_ap=torch.rand((C,), generator=g, device=dev),
+             loc=normal(C, d), L=Lt.permute(2, 0, 1).contiguous(),
+             log_lam=normal(C) * 0.5, z=normal(C, d))
+    p["pe"][0] = float("nan")
+    p["pe_prop"][1] = float("nan")
+    p["loc"][2] = float("inf")
+    p["pe_prop"][2] = -1.0          # accepted: delta = x' - inf
+    return p
+
+
+def float_ulps(a, b) -> int:
+    """The largest distance in units of the last place between two float32
+    tensors of finite entries."""
+    def ordered(t):
+        i = t.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def check_step_kernels(ks, ka, k1, dev, card: str) -> dict:
+    """The ARWMH lockstep step's kernels (csrc/arwmh_step.cu) against the
+    plain operators they replace (kernels/arwmh.py propose_plain,
+    accept_plain, settle_plain) on the same card inputs, at STEP_SHAPES:
+    propose within the bound of two orders of a float32 sum of d products
+    (the plain version is a cuBLAS gemv), accept -> K1 -> settle bit for bit
+    before and after the warmup's clock reset but as_change (a sum of d^2
+    squares in the kernel's own order: within d^2 + 1 units in the last
+    place, its non-finite entries alike); then card times of each beside
+    its plain ops and its bound.  Returns the kernels-line results at the
+    main path's (4096, 10)."""
+    u = 2.0 ** -24
+    out = {}
+    for C, d in STEP_SHAPES:
+        p = step_inputs(C, d, seed=C + d, dev=dev)
+        got = ks.propose(p["x"], p["L"], p["log_lam"], p["z"], STEP_EPS)
+        want = ka.propose_plain(p["x"], p["L"], p["log_lam"], p["z"],
+                                STEP_EPS)
+        P = p["L"].double() * p["log_lam"].double().exp()[:, None, None] \
+            + STEP_EPS * torch.eye(d, device=dev, dtype=torch.float64)
+        terms = (P.abs() * p["z"].double().abs()[:, None, :]).sum(-1)
+        diff = (got.double() - want.double()).abs()
+        require(bool((diff <= 2 * (d + 1) * u * terms
+                      + 2 * u * want.double().abs()).all()),
+                f"arwmh_propose at ({C}, {d}) off the plain proposal by "
+                f"{float(diff.max()):.3e}")
+        errs = {"propose": float(diff.max()), "accept": 0.0, "settle": 0.0}
+        ulps = 0
+        for clock in (2, 9):
+            i = torch.full((), clock, dtype=torch.int32, device=dev)
+            tails = []
+            for accept, settle in ((ks.accept, ks.settle),
+                                   (ka.accept_plain, ka.settle_plain)):
+                a = accept(p["x"], p["pe"], p["x_prop"], p["pe_prop"],
+                           p["u"], p["mean_ap"], i, p["loc"], p["L"],
+                           p["log_lam"], **STEP_KW)
+                tails.append((a, settle(
+                    p["L"], k1.chol_update(a.scaled, a.delta, a.gamma),
+                    p["log_lam"], a.log_step_size, i)))
+            (a, s), (a0, s0) = tails
+            for name, x, y in [*zip(a._fields, a, a0),
+                               *zip(("scale", "clock"), s[::2], s0[::2])]:
+                require(torch.equal(x.contiguous().view(torch.int32),
+                                    y.contiguous().view(torch.int32)),
+                        f"arwmh step kernels at ({C}, {d}), clock {clock}: "
+                        f"{name} differs from the plain operators")
+            fin = torch.isfinite(s0[1])
+            require(torch.equal(torch.isfinite(s[1]), fin),
+                    f"as_change's non-finite entries at ({C}, {d})")
+            ulps = max(ulps, float_ulps(s[1][fin], s0[1][fin]))
+            errs["settle"] = max(errs["settle"], float(
+                (s[1][fin] - s0[1][fin]).abs().max()))
+        require(ulps <= d * d + 1,
+                f"as_change at ({C}, {d}) {ulps} ulp off the plain norm")
+        i = torch.full((), 9, dtype=torch.int32, device=dev)
+        acc = ks.accept(p["x"], p["pe"], p["x_prop"], p["pe_prop"], p["u"],
+                        p["mean_ap"], i, p["loc"], p["L"], p["log_lam"],
+                        **STEP_KW)
+        updated = k1.chol_update(acc.scaled, acc.delta, acc.gamma)
+        vec, one, fac = C * d, C, C * d * d
+        cases = {
+            # (the call, its plain version, floats read and written once
+            # (the clock's int32 as one), float operations)
+            "propose": (lambda f: f(p["x"], p["L"], p["log_lam"], p["z"],
+                                    STEP_EPS),
+                        ks.propose, ka.propose_plain, 3 * vec + fac + one,
+                        vec * (4 * d + 1) + one),
+            "accept": (lambda f: f(p["x"], p["pe"], p["x_prop"],
+                                   p["pe_prop"], p["u"], p["mean_ap"], i,
+                                   p["loc"], p["L"], p["log_lam"],
+                                   **STEP_KW),
+                       ks.accept, ka.accept_plain,
+                       6 * vec + 9 * one + 2 * fac + 1,
+                       one * 16 + 4 * vec + fac),
+            "settle": (lambda f: f(p["L"], updated, p["log_lam"],
+                                   acc.log_step_size, i),
+                       ks.settle, ka.settle_plain, 3 * fac + 3 * one + 2,
+                       7 * fac + 2 * one),
+        }
+        for name, (call, kernel, plain, floats, ops) in cases.items():
+            ms = device_ms(lambda: call(kernel), 100)
+            plain_ms = device_ms(lambda: call(plain), 100)
+            b = bound(4 * floats, ops)
+            print(f"arwmh_{name} ({C}, {d}): kernel {ms:.6f} ms, plain ops "
+                  f"{plain_ms:.6f} ms ({plain_ms / ms:.1f}x), bound "
+                  f"{b['bound_ms']:.6f} ms by {b['bound_by']} "
+                  f"({4 * floats / 1e6:.3f} MB), max abs error against "
+                  f"the plain ops {errs[name]:.3e} on {card}")
+            if (C, d) == STEP_SHAPES[0]:
+                require(ms < plain_ms, f"arwmh_{name} slower than the plain "
+                        f"ops it replaces at ({C}, {d})")
+                out[name] = {"ms": ms, "plain_ms": plain_ms,
+                             "max_abs_err": errs[name], **b}
+        print(f"arwmh step kernels ({C}, {d}): propose within its bound of "
+              f"the plain proposal, accept -> K1 -> settle equal to the "
+              f"plain operators bit for bit but as_change, {ulps} ulp off")
+    return out
 
 
 def gold_draws(amt) -> np.ndarray:
@@ -2823,6 +2972,7 @@ def main() -> int:
     from adaptive_mcmc_tpu_torch.bench import card_name
     from adaptive_mcmc_tpu_torch.ops.cuda import _build
     from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2
+    from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_step as ks
     from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3
     from adaptive_mcmc_tpu_torch.ops.cuda import auction as auction_kernel
     from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1
@@ -2852,7 +3002,11 @@ def main() -> int:
     # 2.-4. kernels against their plain versions
     elapsed("build and device")
     k1_res = check_k1(k1, dev, card)
-    elapsed("K1 checks")
+    # the module: the package's kernels namespace binds arwmh to the builder
+    step_res = check_step_kernels(
+        ks, importlib.import_module("adaptive_mcmc_tpu_torch.kernels.arwmh"),
+        k1, dev, card)
+    elapsed("K1 and the ARWMH step kernels' checks")
     k2_res = {name: check_k2(amt, k2, dev, name, chains[name])
               for name in TARGETS}
     k3_res = {name: check_k3(amt, k3, dev, name, chains[name])
@@ -2863,11 +3017,14 @@ def main() -> int:
     # 5. the ARWMH main path, through K1 (from the CUDA graph) and K2
     check_graph_equals_eager(amt, k1)
     reset_launches(*counters)
+    ks.propose_launches = ks.accept_launches = ks.settle_launches = 0
     lock_rate, _ = run_main_path(amt, fused=False, card=card)
     k1_main = k1.launches
-    require(k1_main == NUM_WARMUP + NUM_SAMPLES,
-            f"K1 launches {k1_main} on the lockstep path, steps "
-            f"{NUM_WARMUP + NUM_SAMPLES}")
+    step_main = (ks.propose_launches, ks.accept_launches, ks.settle_launches)
+    require(k1_main == NUM_WARMUP + NUM_SAMPLES
+            and set(step_main) == {k1_main},
+            f"K1 launches {k1_main}, propose, accept and settle {step_main} "
+            f"on the lockstep path, steps {NUM_WARMUP + NUM_SAMPLES}")
     reset_launches(*counters)
     fused_rate, arwmh_last = run_main_path(amt, fused=True, card=card)
     k2_main = k2.launches
@@ -3077,6 +3234,14 @@ def main() -> int:
         "auction_round", "auction.cu", AUCTION_REPLACES, diag["launches"],
         32 * auction_kernel.warps_per_bidder(8, 16, 625, sms),
         diag["kernel"]))
+    # the ARWMH step's kernels: their launches on the lockstep main path,
+    # lanes per chain at (4096, 10)
+    for kname, n, lanes_per_chain in zip(("propose", "accept", "settle"),
+                                         step_main, (STEP_SHAPES[0][1], 32,
+                                                     32)):
+        kernels.append(kernel_entry(f"arwmh_{kname}", "arwmh_step.cu",
+                                    STEP_REPLACES, n, lanes_per_chain,
+                                    step_res[kname]))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, "
           f"builds included")
     print(json.dumps({"kernels": kernels}))

@@ -271,3 +271,87 @@ def test_rwm_fixed_proposal_never_adapts():
     np.testing.assert_allclose(a0.log_step_size.numpy(), np.log(0.8),
                                rtol=1e-6)
     assert float(torch.mean(st.mean_accept_prob)) > 0.0
+
+
+# -- the step's operations around the potential: plain on the CPU ---------
+
+def _inline_step(config, potential, state, noise, u):
+    """The lockstep step written out as one sequence of PyTorch operators:
+    what the step's plain propose / accept / K1 / settle must compose to on
+    a CPU state, bit for bit."""
+    from adaptive_mcmc_tpu_torch.kernels.base import adaptation_lr, nan_to_inf
+    from adaptive_mcmc_tpu_torch.ops.cholesky import adaptive_scale_update
+    loc, L, log_lam = state.adapt_state
+    x, pe = state.position, state.potential_energy
+    C, d = x.shape
+    step_size = torch.exp(log_lam)
+    x_prop = x + torch.einsum(
+        "cij,cj->ci",
+        L * step_size[:, None, None] + config.eps * torch.eye(d), noise)
+    pe_prop = nan_to_inf(potential(x_prop))
+    accept_prob = torch.exp(pe - pe_prop).clamp_max(1.0)
+    accepted = u < accept_prob
+    x_new = torch.where(accepted[:, None], x_prop, x)
+    pe_new = torch.where(accepted, pe_prop, pe)
+    n, gamma = adaptation_lr(state.i, config.num_warmup, config.lr_decay)
+    mean_ap = state.mean_accept_prob
+    mean_new = mean_ap + (accept_prob - mean_ap) / n.to(torch.float32)
+    if not config.adapt:
+        return (x_new, pe_new, mean_new, loc, L, log_lam,
+                torch.zeros_like(pe), state.i + 1)
+    delta = x_new - loc
+    L_new = adaptive_scale_update(L, delta, gamma.expand(C))
+    log_lam_new = log_lam + gamma * (accept_prob - config.target_accept_prob)
+    as_change = torch.linalg.matrix_norm(
+        L_new * torch.exp(log_lam_new)[:, None, None]
+        - L * step_size[:, None, None])
+    return (x_new, pe_new, mean_new, loc + gamma * delta, L_new, log_lam_new,
+            as_change, state.i + 1)
+
+
+@pytest.mark.parametrize("adapt", [True, False])
+def test_cpu_step_runs_the_plain_ops_and_launches_nothing(adapt):
+    """A CPU state takes the plain propose / accept / settle (and K1's plain
+    version): 12 steps across the warmup boundary equal the step written
+    out as one sequence of operators, bit for bit, and no kernel's launch
+    count moves."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import launch_counts
+    t = amt.eight_schools_noncentered()
+    config = amt.ARWMHConfig(num_warmup=5, adapt=adapt)
+    k = amt.arwmh(t, config)
+    g = _gen(31)
+    state = k.init(g, n_chains=16)
+    before = launch_counts()
+    for _ in range(12):
+        noise = torch.randn((16, t.dim), generator=g)
+        u = torch.rand((16,), generator=g)
+        want = _inline_step(config, t.potential_fn, state, noise, u)
+        state = k.step(state, None, noise, u)
+        a = state.adapt_state
+        got = (state.position, state.potential_energy,
+               state.mean_accept_prob, a.loc, a.scale, a.log_step_size,
+               state.as_change, state.i)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+    assert launch_counts() == before
+
+
+def test_step_kernels_refuse_a_cpu_state():
+    from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_step
+    C, d = 4, 3
+    with pytest.raises(ValueError, match="CUDA"):
+        arwmh_step.propose(torch.zeros(C, d), torch.zeros(C, d, d),
+                           torch.zeros(C), torch.zeros(C, d), 1e-6)
+
+
+@pytest.mark.parametrize("lr_decay,mode", [
+    (2.0 / 3.0, 0), (0.6, 0), (1.0, 1), (0.5, 2)])
+def test_accept_kernel_takes_torchs_power_for_each_lr_decay(lr_decay, mode):
+    """gamma = n^(-lr_decay) in the accept kernel goes the way
+    adaptation_lr goes on CUDA for that lr_decay (its 1 / n at 1, the rsqrt
+    of PyTorch's pow at 0.5, else powf), with the exponent rounded to
+    float32."""
+    from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_step
+    got_mode, exponent = arwmh_step.pow_mode(lr_decay)
+    assert got_mode == mode
+    assert exponent == float(np.float32(-lr_decay))

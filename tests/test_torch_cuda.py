@@ -18,6 +18,7 @@ import adaptive_mcmc_tpu_torch as amt  # noqa: E402
 from adaptive_mcmc_tpu_torch.infer.mcmc import state_tensors  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import _build  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_fused as k2  # noqa: E402
+from adaptive_mcmc_tpu_torch.ops.cuda import arwmh_step  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import asss_fused as k3  # noqa: E402
 from adaptive_mcmc_tpu_torch.ops.cuda import chol_update as k1  # noqa: E402
 from adaptive_mcmc_tpu_torch.utils import profiling  # noqa: E402
@@ -121,8 +122,9 @@ def test_k1_takes_strided_views(cuda):
 def test_graph_run_equals_eager_run(cuda, name, thinning):
     """run_mcmc from the CUDA graph gives the eager loop's draws, extras and
     last state bit for bit from the same seed (warmup 13: whole blocks and
-    single steps), leaves the caller's init_state as it was, counts K1 once
-    per step, and moves the generator on as the eager loop does."""
+    single steps), leaves the caller's init_state as it was, counts each of
+    the step's kernels once per step (K1 and settle where the step adapts),
+    and moves the generator on as the eager loop does."""
     t = amt.eight_schools_noncentered()
     k = amt.arwmh(t, amt.ARWMHConfig(num_warmup=13)) if name == "arwmh" \
         else amt.rwm(t, step_size=0.3)
@@ -134,11 +136,12 @@ def test_graph_run_equals_eager_run(cuda, name, thinning):
     for eager in (True, False):
         g = torch.Generator(cuda).manual_seed(6)
         k1.launches = 0
+        _reset_step_launches()
         out.append(amt.run_mcmc(k, g, W, N, thinning=thinning, n_chains=C,
                                 init_state=init, extra_fields=fields,
                                 eager=eager))
         torch.cuda.synchronize()
-        counts.append(k1.launches)
+        counts.append((k1.launches, *_step_launches()))
         gens.append(torch.rand(4, generator=g, device=cuda))
     (want, want_x, want_last), (got, got_x, got_last) = out
     assert torch.equal(got, want)
@@ -148,11 +151,161 @@ def test_graph_run_equals_eager_run(cuda, name, thinning):
         assert torch.equal(a, b)
     for a, b in zip(state_tensors(init), kept):
         assert torch.equal(a, b)
-    assert counts[0] == counts[1] == (W + N if name == "arwmh" else 0)
+    # K1 and settle once per adapting step, propose and accept every step
+    adapting = W + N if name == "arwmh" else 0
+    assert counts[0] == counts[1] == (adapting, W + N, W + N, adapting)
     assert torch.equal(gens[0], gens[1])
     # successive replays propose anew: frames differ from one another
     assert not torch.equal(got[0], got[1]) and not torch.equal(got[1], got[2])
     assert int(got_last.i) == W + N
+
+
+def _reset_step_launches():
+    arwmh_step.propose_launches = arwmh_step.accept_launches = 0
+    arwmh_step.settle_launches = 0
+
+
+def _step_launches() -> tuple:
+    return (arwmh_step.propose_launches, arwmh_step.accept_launches,
+            arwmh_step.settle_launches)
+
+
+def _bits(t):
+    """A float32 tensor's bits: equal bits are equal values, NaNs and the
+    sign of zero included."""
+    return t.contiguous().view(torch.int32)
+
+
+def _ulps(a, b) -> int:
+    """The largest distance in units of the last place between two float32
+    tensors of finite entries."""
+    def ordered(t):
+        i = _bits(t).to(torch.int64)
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def _step_inputs(C, d, device, seed):
+    """A state and a proposal's results at (C, d): random factors, a NaN
+    potential in chain 0's state, a NaN proposed potential in chain 1 (a
+    rejection), and in chain 2 (if any) a mean at +inf, whose rank-1 update
+    goes NaN, so that the guard keeps the old factor."""
+    Lt, _, _ = _chol_inputs(C, d, device, seed)
+    g = torch.Generator(device).manual_seed(seed)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=device)
+    x, x_prop, loc = normal(C, d), normal(C, d), normal(C, d)
+    pe, pe_prop = normal(C).abs() * 5, normal(C).abs() * 5
+    pe[0] = float("nan")
+    if C > 1:
+        pe_prop[1] = float("nan")
+    if C > 2:
+        loc[2] = float("inf")
+        pe_prop[2] = -1.0       # accepted: delta = x' - inf
+    u = torch.rand((C,), generator=g, device=device)
+    mean_ap = torch.rand((C,), generator=g, device=device)
+    log_lam = normal(C) * 0.5
+    return dict(x=x, pe=pe, x_prop=x_prop, pe_prop=pe_prop, u=u,
+                mean_ap=mean_ap, loc=loc, L=Lt.permute(2, 0, 1).contiguous(),
+                log_lam=log_lam)
+
+
+@pytest.mark.parametrize("C", [1, 100, 4096])
+@pytest.mark.parametrize("d", [1, 10, 26, 32])
+def test_propose_kernel_matches_plain_proposal(cuda, d, C):
+    """x + (L e^lam + eps I) z against the plain proposal (a cuBLAS gemv).
+    The kernel sums j = 0 .. d-1 in order, cuBLAS in an order of its own:
+    each float32 sum of d products is within d u sum_j |P_ij z_j| of the
+    exact one (u = 2^-24; (d + 1) u here, for margin), so the two differ
+    by at most twice that, plus one rounding of x + sum on either side."""
+    from adaptive_mcmc_tpu_torch.kernels.arwmh import propose_plain
+    p = _step_inputs(C, d, cuda, seed=d + C)
+    z = torch.randn((C, d), generator=torch.Generator(cuda).manual_seed(1),
+                    device=cuda)
+    before = arwmh_step.propose_launches
+    got = arwmh_step.propose(p["x"], p["L"], p["log_lam"], z, 1e-6)
+    assert arwmh_step.propose_launches == before + 1
+    want = propose_plain(p["x"], p["L"], p["log_lam"], z, 1e-6)
+    torch.cuda.synchronize()
+    P = p["L"].double() * p["log_lam"].double().exp()[:, None, None] \
+        + 1e-6 * torch.eye(d, device=cuda, dtype=torch.float64)
+    terms = (P.abs() * z.double().abs()[:, None, :]).sum(-1)
+    u = 2.0 ** -24
+    bound = 2 * (d + 1) * u * terms + 2 * u * want.double().abs()
+    assert got.shape == want.shape and got.is_contiguous()
+    assert bool(((got.double() - want.double()).abs() <= bound).all())
+
+
+def _tails(p, i, kw):
+    """The accept -> K1 -> settle tail by the kernels and by the plain
+    operators on the card, fed the same proposal: each a dict of fields."""
+    from adaptive_mcmc_tpu_torch.kernels.arwmh import (accept_plain,
+                                                       settle_plain)
+    out = []
+    for accept, settle in ((arwmh_step.accept, arwmh_step.settle),
+                           (accept_plain, settle_plain)):
+        a = accept(p["x"], p["pe"], p["x_prop"], p["pe_prop"], p["u"],
+                   p["mean_ap"], i, p["loc"], p["L"], p["log_lam"], **kw)
+        fields = {"position": a.position, "pe": a.potential_energy,
+                  "mean_accept_prob": a.mean_accept_prob}
+        if kw["adapt"]:
+            L_new, as_change, i_new = settle(
+                p["L"], k1.chol_update(a.scaled, a.delta, a.gamma),
+                p["log_lam"], a.log_step_size, i)
+            fields.update(loc=a.loc, log_step_size=a.log_step_size,
+                          scaled=a.scaled, delta=a.delta, gamma=a.gamma,
+                          scale=L_new, as_change=as_change, i=i_new)
+        else:
+            assert a.loc is a.scaled is a.gamma is None
+        out.append(fields)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("lr_decay", [2.0 / 3.0, 0.5, 1.0])
+@pytest.mark.parametrize("clock", [2, 9])
+@pytest.mark.parametrize("C,d", [(4096, 10), (100, 26), (3, 1)])
+def test_accept_k1_settle_match_the_plain_tail(cuda, C, d, clock, lr_decay):
+    """The accept kernel, K1 and the settle kernel against the plain
+    operators on the card with K1 between them, from the same proposal, a
+    NaN potential, a rejection by NaN and an update that goes NaN among
+    them, before and after the warmup's clock reset: every field bit for
+    bit but as_change, whose sum of squares the settle kernel takes in its
+    own order (PyTorch's norm reduction takes another).  Both orders of a
+    sum of d^2 non-negative squares are within (d^2 - 1) u of the exact
+    sum, and the square root halves that, so as_change may differ by up to
+    d^2 + 1 units in the last place (measured on an H100: 0 at (4096, 10),
+    1 at (100, 26)); it matches in its non-finite entries."""
+    p = _step_inputs(C, d, cuda, seed=7 * d + clock)
+    i = torch.full((), clock, dtype=torch.int32, device=cuda)
+    kw = dict(num_warmup=5, lr_decay=lr_decay, target_accept_prob=0.234,
+              adapt=True)
+    before = _step_launches()
+    got, want = _tails(p, i, kw)
+    assert _step_launches() == (before[0], before[1] + 1, before[2] + 1)
+    assert int(got["i"]) == clock + 1
+    for name in want:
+        if name != "as_change":
+            assert torch.equal(_bits(got[name]), _bits(want[name])), name
+    a, b = got["as_change"], want["as_change"]
+    fin = torch.isfinite(b)
+    assert torch.equal(torch.isfinite(a), fin)
+    assert _ulps(a[fin], b[fin]) <= d * d + 1
+    if C > 2:
+        # chain 2's update went NaN: the old factor stays
+        assert torch.equal(got["scale"][2], p["L"][2])
+
+
+def test_accept_kernel_without_adaptation(cuda):
+    """adapt=False (RWM, frozen rollouts): the MH select and the running
+    mean bit for bit, and nothing of the adaptation written."""
+    p = _step_inputs(4096, 10, cuda, seed=3)
+    i = torch.full((), 9, dtype=torch.int32, device=cuda)
+    got, want = _tails(p, i, dict(num_warmup=5, lr_decay=2.0 / 3.0,
+                                  target_accept_prob=0.234, adapt=False))
+    for name in want:
+        assert torch.equal(_bits(got[name]), _bits(want[name])), name
 
 
 def test_graph_refuses_a_potential_that_reads_the_host(cuda):
@@ -209,6 +362,7 @@ def _landed(mcmc) -> bool:
 def test_main_path_goes_through_the_kernels(cuda, fused):
     t = amt.eight_schools_noncentered()
     k1.launches = k2.launches = 0
+    _reset_step_launches()
     mcmc = amt.MCMC(amt.arwmh(t, amt.ARWMHConfig(fused=fused)),
                     num_warmup=200, num_samples=400, thinning=4,
                     n_chains=256)
@@ -218,6 +372,7 @@ def test_main_path_goes_through_the_kernels(cuda, fused):
     assert not samples.is_cuda and samples.shape == (100 * 256, t.dim)
     assert bool(torch.isfinite(samples).all())
     assert (k2.launches if fused else k1.launches) > 0
+    assert (arwmh_step.accept_launches > 0) != fused
 
 
 def _asss_state(t, C, device, seed):
